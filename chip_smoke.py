@@ -12,18 +12,33 @@ Phases (any failure raises; nothing is caught):
                the card; every kernel's output on the inputs it was given
                must equal its plain PyTorch version exactly over the
                valid regions.
+  2b. levels - the 256 KiB input at level 3 (32 KiB frames) and at level
+               19 with a 64 KiB prefix, through the parallel parse: every
+               reachability and FSE kernel call on the card equals its
+               plain version exactly, each archive equals the CPU port's
+               archive of the same input, and every frame decodes back.
   3. main    - 10 MiB of dickens-like text (a copy of bench.py's
                build_corpus, seeded), 1 MiB frames, level 1, checksums on:
                encode, Foot seek table, parse it back, decode on the ring
                route and on the wide route, decode frames 3-5, and a
                one-bit corruption that must never decode to wrong bytes.
-               Every kernel must have launched in this phase.
+               The match, FSE, ring and wide kernels must have launched.
   4. timing  - 5 warm runs of encode and decode (checksums off, input
                staged, output left on the card): median and spread in
                MiB/s; the fenced phase split; every kernel's CUDA-event
                time at the main path's shapes beside its memory bound
                (bytes read + written over 3.35 TB/s) and its plain
                version's time on the same inputs.
+  3b. level 3 - the same 10 MiB text, 1 MiB frames, level 3 (the CLI's
+               default), checksums on: encode, Foot seek table, decode
+               (the 1 MiB windows take the wide route), frames 3-5, the
+               flipped bit; then a patch round trip (old = the first 2 MiB,
+               new = old with 256 seeded 16-byte overwrites and a 4 KiB
+               insertion, encoded with old as prefix, every frame back
+               through decompress_frame). The reachability kernels, the
+               FSE kernel and the wide decoder must have launched.
+  4b. timing - as phase 4 for the level-3 configuration (decode on the
+               wide route), and the kernels of the level-3 path.
 
 Prints the card's name and power limit, one JSON line with the kernel
 table, and as its last line {"ok": true, "device": {...}}. With --out
@@ -103,14 +118,17 @@ def log(msg):
 
 
 class Recorder:
-    """Wraps the four kernel wrappers to keep the inputs the pipeline
+    """Wraps the six kernel wrappers to keep the inputs the pipeline
     gives them (the calls still go through the wrappers)."""
 
     def __init__(self):
-        from zeekstd_tpu_torch.ops import decode_kernel, fse_kernel, match_kernel, ring_kernel
+        from zeekstd_tpu_torch.ops import (decode_kernel, fse_kernel, match_kernel,
+                                           reach_kernel, ring_kernel)
 
         self.sites = {
             "match": (match_kernel, "match"),
+            "reach_tables": (reach_kernel, "chunk_pointer_tables"),
+            "reach_mark": (reach_kernel, "chunk_mark"),
             "fse": (fse_kernel, "fse_encode"),
             "ring_decode": (ring_kernel, "ring_decode"),
             "wide_decode": (decode_kernel, "wide_decode"),
@@ -145,10 +163,21 @@ def _max_err(a, b):
 def compare(name, a, k, mods):
     """Run the plain version on the kernel's inputs and compare the valid
     regions exactly. Returns (max_abs_err, plain seconds)."""
-    mk, fk, dk, rk = mods
+    mk, fk, dk, rk, rch = mods
     sync = torch.cuda.synchronize
     sync()
-    if name == "match":
+    if name in ("reach_tables", "reach_mark"):
+        if name == "reach_tables":
+            out = rch.chunk_pointer_tables(*a)
+        else:
+            out = rch.chunk_mark(*a)
+        sync()
+        cpu = [t.cpu() for t in a]
+        t0 = time.perf_counter()
+        ref = rch.tables_plain(*cpu) if name == "reach_tables" else rch.mark_plain(*cpu)
+        t_plain = time.perf_counter() - t0
+        err = _max_err(out, ref.to(out.device))
+    elif name == "match":
         out = mk.match(*a, **k)
         sync()
         t0 = time.perf_counter()
@@ -204,7 +233,9 @@ def compare(name, a, k, mods):
 def read_bytes(name, a, mods):
     """Input bytes the function must read for these inputs, each once (the
     part of each input the data uses)."""
-    mk, fk, dk, rk = mods
+    mk, fk, dk, rk, rch = mods
+    if name in ("reach_tables", "reach_mark"):
+        return sum(t.numel() * 4 for t in a)  # the steps; the tables and entries
     if name == "match":
         consts, meta, words = a
         m = meta.reshape(-1, mk.META_COLS).cpu()
@@ -225,7 +256,9 @@ def read_bytes(name, a, mods):
 
 def written_bytes(name, result, mods):
     """Output bytes the function must write, each once."""
-    mk, fk, dk, rk = mods
+    mk, fk, dk, rk, rch = mods
+    if name in ("reach_tables", "reach_mark"):
+        return result.numel() * 4
     if name == "match":
         lm, ofv, litw, stat = result
         nseq = int(stat[:, mk.ST_NSEQ].sum())
@@ -238,8 +271,9 @@ def written_bytes(name, result, mods):
 
 
 def time_kernel(name, a, k, mods, reps=5):
-    mk, fk, dk, rk = mods
-    fn = {"match": mk.match, "fse": fk.fse_encode,
+    mk, fk, dk, rk, rch = mods
+    fn = {"match": mk.match, "reach_tables": rch.chunk_pointer_tables,
+          "reach_mark": rch.chunk_mark, "fse": fk.fse_encode,
           "ring_decode": rk.ring_decode, "wide_decode": dk.wide_decode}[name]
     result = fn(*a, **k)  # warm
     torch.cuda.synchronize()
@@ -259,6 +293,60 @@ def med_spread(n, samples):
     return n / m / MIB, rates[0], rates[-1]
 
 
+def time_path(zt, data, level, dev, smi):
+    """5 warm on-device encodes and decodes of ``data`` (1 MiB frames,
+    checksums off, input staged): (encode, decode) median and spread in
+    MiB/s, and the fenced phase split of one more run of each."""
+    n = len(data)
+    staged = zt.StagedInput(data, MIB, device=dev)
+    zt.compress_archive(staged, frame_size=MIB, level=level, return_device=True)
+    samples = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        zt.compress_archive(staged, frame_size=MIB, level=level, return_device=True)
+        torch.cuda.synchronize()
+        samples.append(time.perf_counter() - t0)
+    enc = med_spread(n, samples)
+    blob_nc, st_nc = zt.compress_archive(staged, frame_size=MIB, level=level)
+    samples = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        zt.decompress_archive(blob_nc, st_nc, return_device=True, device=dev)
+        torch.cuda.synchronize()
+        samples.append(time.perf_counter() - t0)
+    dec = med_spread(n, samples)
+    log(f"[timing] level {level}: on-device encode MiB/s median {enc[0]:.3f} "
+        f"[{enc[1]:.3f}-{enc[2]:.3f}] x5; decode median {dec[0]:.3f} "
+        f"[{dec[1]:.3f}-{dec[2]:.3f}] x5  ({smi})")
+    zt.set_timing(2)
+    zt.phase_records.clear()
+    zt.compress_archive(staged, frame_size=MIB, level=level, return_device=True)
+    enc_phases = dict(zt.phase_records)
+    zt.phase_records.clear()
+    zt.decompress_archive(blob_nc, st_nc, return_device=True, device=dev)
+    dec_phases = dict(zt.phase_records)
+    zt.set_timing(0)
+    for tag, ph in (("enc", enc_phases), ("dec", dec_phases)):
+        log(f"[timing] level {level} {tag} phases (fenced, s per 10 MiB): " + ", ".join(
+            f"{k} {v:.6f}" for k, v in sorted(ph.items(), key=lambda kv: -kv[1])))
+    return dict(enc_mibs=enc, dec_mibs=dec, enc_phases=enc_phases, dec_phases=dec_phases)
+
+
+def patch_pair(data: bytes, seed: int = 5):
+    """(old, new): old is the first 2 MiB of ``data``; new is old with 256
+    seeded 16-byte overwrites and one 4 KiB insertion."""
+    rng = np.random.default_rng(seed)
+    old = data[: 2 * MIB]
+    new = bytearray(old)
+    for p in rng.integers(0, len(new) - 16, 256):
+        new[p : p + 16] = rng.integers(0, 256, 16, dtype=np.uint8).tobytes()
+    at = int(rng.integers(0, len(new)))
+    new[at:at] = rng.integers(0, 256, 4096, dtype=np.uint8).tobytes()
+    return old, bytes(new)
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", help="directory for chip_smoke.json")
@@ -274,9 +362,10 @@ def main():
     from zeekstd_tpu_torch.ops import decode_kernel as dk
     from zeekstd_tpu_torch.ops import fse_kernel as fk
     from zeekstd_tpu_torch.ops import match_kernel as mk
+    from zeekstd_tpu_torch.ops import reach_kernel as rch
     from zeekstd_tpu_torch.ops import ring_kernel as rk
 
-    mods = (mk, fk, dk, rk)
+    mods = (mk, fk, dk, rk, rch)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True,
@@ -310,6 +399,8 @@ def main():
             del os.environ["ZEEKSTD_TPU_RING"]
     small_err = {}
     for name, calls in rec.calls.items():
+        if name in ("reach_tables", "reach_mark"):
+            continue  # level 1 takes the match kernel; phase 2b drives these
         if not calls:
             raise AssertionError(f"{name}: the 256 KiB run never called it")
         err = 0
@@ -318,6 +409,29 @@ def main():
         small_err[name] = err
         log(f"[kernels] {name}: equal to its plain version on the 256 KiB input "
             f"({len(calls)} call(s), max abs err {err})")
+
+    # --- 2b. the parallel parse against the plain versions ---------------
+    with Recorder() as rec_b:
+        for kw in (dict(level=3), dict(level=19, prefix=mixed_input(64 << 10))):
+            blob_b, st_b = zt.compress_archive(small, frame_size=32 << 10, checksum=True,
+                                               device=dev, **kw)
+            cpu_blob, _ = zt.compress_archive(small, frame_size=32 << 10, checksum=True,
+                                              device="cpu", **kw)
+            assert blob_b == cpu_blob, f"{kw['level']}: card archive differs from CPU archive"
+            for i in range(st_b.num_frames):
+                got, _end = zt.decompress_frame(blob_b, st_b.frame_start_comp(i),
+                                                prefix=kw.get("prefix", b""), device=dev)
+                assert got == small[st_b.frame_start_decomp(i) : st_b.frame_end_decomp(i)]
+    for name in ("reach_tables", "reach_mark", "fse"):
+        calls = [(a, k) for a, k in rec_b.calls[name] if a[0].is_cuda]
+        if not calls:
+            raise AssertionError(f"{name}: the level-3/19 runs never called it")
+        err = 0
+        for a, k in calls:
+            err = max(err, compare(name, a, k, mods)[0])
+        small_err[name] = max(small_err.get(name, 0), err)
+        log(f"[kernels] {name}: equal to its plain version on the 256 KiB input at levels "
+            f"3 and 19 ({len(calls)} call(s), max abs err {err}); archives equal the CPU port's")
 
     # --- 3. main path, full size -----------------------------------------
     data = build_corpus(10 << 20)
@@ -358,72 +472,106 @@ def main():
         f"first decode {t_dec:.3f}s; ring, wide and frames 3-5 exact; "
         f"flipped bit -> {corrupt}")
     log(f"[main] launches: {counts}")
-    for name, c in counts.items():
-        if c <= 0:
+    for name in ("match", "fse", "ring_decode", "wide_decode"):
+        if counts[name] <= 0:
             raise AssertionError(f"kernel {name} was not launched on the main path")
     results.update(ratio=len(blob) / n, launches=counts, corrupt=corrupt)
 
     # --- 4. timing --------------------------------------------------------
-    staged = zt.StagedInput(data, MIB, device=dev)
-    zt.compress_archive(staged, frame_size=MIB, level=1, return_device=True)
-    samples = []
-    for _ in range(5):
-        torch.cuda.synchronize()
+    results.update(time_path(zt, data, 1, dev, smi))
+
+    # --- 3b. level 3 (the CLI's default), full size ----------------------
+    ops.reset_launches()
+    with Recorder() as main_rec3:
         t0 = time.perf_counter()
-        rows, c_sizes, st_t = zt.compress_archive(staged, frame_size=MIB, level=1,
-                                                   return_device=True)
-        torch.cuda.synchronize()
-        samples.append(time.perf_counter() - t0)
-    enc = med_spread(n, samples)
-    blob_nc, st_nc = zt.compress_archive(staged, frame_size=MIB, level=1)
-    samples = []
-    for _ in range(5):
-        torch.cuda.synchronize()
+        blob3, st3 = zt.compress_archive(data, frame_size=MIB, level=3, checksum=True,
+                                         device=dev)
+        t_enc3 = time.perf_counter() - t0
+        archive3 = blob3 + st3.to_bytes(zt.Format.FOOT)
+        st3b = zt.SeekTable.from_bytes(archive3)
+        assert st3b.num_frames == st3.num_frames == 10
+        assert os.environ.get("ZEEKSTD_TPU_RING") is None
         t0 = time.perf_counter()
-        out_dev, sizes = zt.decompress_archive(blob_nc, st_nc, return_device=True,
-                                               device=dev)
-        torch.cuda.synchronize()
-        samples.append(time.perf_counter() - t0)
-    dec = med_spread(n, samples)
-    log(f"[timing] on-device encode MiB/s median {enc[0]:.3f} [{enc[1]:.3f}-{enc[2]:.3f}] x5; "
-        f"decode median {dec[0]:.3f} [{dec[1]:.3f}-{dec[2]:.3f}] x5  ({smi})")
-    zt.set_timing(2)
-    zt.phase_records.clear()
-    zt.compress_archive(staged, frame_size=MIB, level=1, return_device=True)
-    enc_phases = dict(zt.phase_records)
-    zt.phase_records.clear()
-    zt.decompress_archive(blob_nc, st_nc, return_device=True, device=dev)
-    dec_phases = dict(zt.phase_records)
-    zt.set_timing(0)
-    for tag, ph in (("enc", enc_phases), ("dec", dec_phases)):
-        log(f"[timing] {tag} phases (fenced, s per 10 MiB): " + ", ".join(
-            f"{k} {v:.6f}" for k, v in sorted(ph.items(), key=lambda kv: -kv[1])))
-    results.update(enc_mibs=enc, dec_mibs=dec, enc_phases=enc_phases,
-                   dec_phases=dec_phases)
+        assert zt.decompress_archive(archive3, st3b, device=dev) == data, "level-3 round trip"
+        t_dec3 = time.perf_counter() - t0
+        spans = [(st3b.frame_start_comp(i), st3b.frame_end_comp(i)) for i in (3, 4, 5)]
+        parts = zt.decode_frames(archive3, spans, device=dev)
+        assert b"".join(parts) == data[st3b.frame_start_decomp(3) : st3b.frame_end_decomp(5)]
+        mid = (st3b.frame_start_comp(4) + st3b.frame_end_comp(4)) // 2
+        bad = bytearray(archive3)
+        bad[mid] ^= 1 << 3
+        try:
+            got = zt.decompress_archive(bytes(bad), st3b, device=dev)
+            corrupt3 = "intact" if got == data else "WRONG"
+        except zt.ZeekstdError as e:
+            corrupt3 = f"error ({type(e).__name__}: {e})"
+        assert corrupt3 != "WRONG", "a corrupted level-3 archive decoded to wrong bytes"
+        old, new = patch_pair(data)
+        blob_p, st_p = zt.compress_archive(new, frame_size=MIB, level=3, checksum=True,
+                                           prefix=old, device=dev)
+        for i in range(st_p.num_frames):
+            got, end = zt.decompress_frame(blob_p, st_p.frame_start_comp(i), prefix=old,
+                                           device=dev)
+            assert got == new[st_p.frame_start_decomp(i) : st_p.frame_end_decomp(i)], i
+            assert end == st_p.frame_end_comp(i)
+    counts3 = dict(ops.launches)
+    log(f"[level 3] 10 MiB: ratio {len(blob3) / n:.6f}, first encode {t_enc3:.3f}s, "
+        f"first decode {t_dec3:.3f}s (wide route); frames 3-5 exact; flipped bit -> "
+        f"{corrupt3}; patch {len(new)} bytes against a {len(old)}-byte prefix -> "
+        f"{len(blob_p)} bytes in {st_p.num_frames} frames, every frame back")
+    log(f"[level 3] launches: {counts3}")
+    for name in ("reach_tables", "reach_mark", "fse", "wide_decode"):
+        if counts3[name] <= 0:
+            raise AssertionError(f"kernel {name} was not launched on the level-3 path")
+    if counts3["ring_decode"] or counts3["match"]:
+        raise AssertionError("the level-3 path took the ring decoder or the match kernel")
+    results.update(ratio3=len(blob3) / n, patch_bytes=len(blob_p), launches3=counts3,
+                   corrupt3=corrupt3)
+
+    # --- 4b. level-3 timing ------------------------------------------------
+    results["level3"] = time_path(zt, data, 3, dev, smi)
 
     sources = {
         "match": ("zeekstd_tpu_torch/csrc/match_kernel.cu", "zeekstd_tpu/ops/match_kernel.py:512"),
+        "reach_tables": ("zeekstd_tpu_torch/csrc/reach_kernel.cu",
+                         "zeekstd_tpu/ops/pallas_kernels.py:152"),
+        "reach_mark": ("zeekstd_tpu_torch/csrc/reach_kernel.cu",
+                       "zeekstd_tpu/ops/pallas_kernels.py:181"),
         "fse": ("zeekstd_tpu_torch/csrc/fse_kernel.cu", "zeekstd_tpu/ops/fse_kernel.py:280"),
         "ring_decode": ("zeekstd_tpu_torch/csrc/fused_decode.cu", "zeekstd_tpu/ops/ring_kernel.py:541"),
         "wide_decode": ("zeekstd_tpu_torch/csrc/fused_decode.cu", "zeekstd_tpu/ops/decode_kernel.py:388"),
     }
-    table = []
-    for name, calls in main_rec.calls.items():
-        a, k = calls[0]
+    # Each kernel at the shapes of the path that needs it: the level-1 path
+    # for the match, FSE and ring kernels, the level-3 path for the
+    # reachability kernels and the wide decoder (its 1 MiB windows); the
+    # FSE kernel is also timed at the level-3 shapes. Launches add up both
+    # main-path phases.
+    table, extra = [], {}
+    for name, path, rec_m in (("match", 1, main_rec), ("reach_tables", 3, main_rec3),
+                              ("reach_mark", 3, main_rec3), ("fse", 1, main_rec),
+                              ("fse", 3, main_rec3), ("ring_decode", 1, main_rec),
+                              ("wide_decode", 3, main_rec3)):
+        a, k = rec_m.calls[name][0]
         ms, result = time_kernel(name, a, k, mods)
         err, t_plain = compare(name, a, k, mods)
         moved = read_bytes(name, a, mods) + written_bytes(name, result, mods)
         bound_ms = moved / HBM_BYTES_PER_S * 1e3
-        table.append({
+        row = {
             "name": name, "route": "cuda", "source": sources[name][0],
-            "replaces": sources[name][1], "launches": counts[name],
+            "replaces": sources[name][1], "launches": counts[name] + counts3[name],
             "max_abs_err": max(err, small_err[name]), "ms": ms,
             "plain_ms": t_plain * 1e3, "bound_ms": bound_ms, "bound_by": "bytes",
             "library_ms": None,
-        })
-        log(f"[timing] {name}: {ms:.4f} ms/launch, bound {bound_ms:.6f} ms "
-            f"({moved} bytes), plain {t_plain * 1e3:.1f} ms")
+        }
+        if name == "fse" and path == 3:
+            extra["fse_level3"] = row
+        else:
+            table.append(row)
+        log(f"[timing] {name} (level-{path} path): {ms:.4f} ms/launch, bound "
+            f"{bound_ms:.6f} ms ({moved} bytes), plain {t_plain * 1e3:.1f} ms, "
+            f"launches {counts[name]} + {counts3[name]}")
     results["kernels"] = table
+    results.update(extra)
 
     if args.out:
         os.makedirs(args.out, exist_ok=True)

@@ -170,19 +170,33 @@ def test_archive_truncation_fails_like_reference(ref):
     dict(level=3), dict(level=1, prefix=b"p" * 40000), dict(level=1, frame_size=48 << 10),
     dict(level=1, frame_size=16 << 20),
 ])
-def test_unported_inputs_raise_not_implemented(kw):
+def test_formerly_refused_inputs_match_reference(monkeypatch, kw):
+    """Level 3, a prefix, and frame sizes the match kernel does not take
+    go through the parallel parse, byte-identical to the reference."""
+    monkeypatch.setenv("ZEEKSTD_TPU_MATCH", "kernel")
     kw = {"frame_size": FRAME, **kw}
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        archive.compress_archive(b"x" * 5000, device="cpu", **kw)
+    data = b"x" * 5000
+    blob, st = archive.compress_archive(data, device="cpu", **kw)
+    ref_blob, ref_st = tpu_compress_archive(data, **kw)
+    assert blob == ref_blob
+    assert st.to_bytes() == ref_st.to_bytes()
+    if "prefix" in kw:
+        assert archive.decompress_frame(blob, prefix=kw["prefix"], device="cpu") == (data, len(blob))
+    else:
+        assert archive.decompress_archive(blob, st, device="cpu") == data
 
 
-def test_overflowing_frame_raises_not_implemented():
-    """Sequences every 5 bytes overflow the 32 KiB frame's sequence bound
-    (the reference re-encodes such frames on the host)."""
+def test_overflowing_frame_matches_reference(monkeypatch):
+    """Sequences every 5 bytes overflow the 32 KiB frame's sequence bound:
+    the frame is encoded on the host, as the reference does."""
+    monkeypatch.setenv("ZEEKSTD_TPU_MATCH", "kernel")
     rng = np.random.default_rng(3)
     data = b"".join(b"abcd" + bytes([int(x)]) for x in rng.integers(0, 256, 6500))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        archive.compress_archive(data, frame_size=FRAME, level=1, device="cpu")
+    blob, st = archive.compress_archive(data, frame_size=FRAME, level=1, device="cpu")
+    ref_blob, ref_st = tpu_compress_archive(data, frame_size=FRAME, level=1)
+    assert blob == ref_blob
+    assert st.to_bytes() == ref_st.to_bytes()
+    assert archive.decompress_archive(blob, st, device="cpu") == data
 
 
 def test_default_device_without_card_raises():

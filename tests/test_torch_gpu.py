@@ -16,6 +16,7 @@ from zeekstd_tpu_torch import ops
 from zeekstd_tpu_torch.ops import decode_kernel as dk
 from zeekstd_tpu_torch.ops import fse_kernel as fk
 from zeekstd_tpu_torch.ops import match_kernel as mk
+from zeekstd_tpu_torch.ops import reach_kernel as rch
 from zeekstd_tpu_torch.ops import ring_kernel as rk
 
 pytestmark = pytest.mark.gpu
@@ -108,3 +109,45 @@ def test_card_archives_equal_cpu_archives(card):
                             device=card) == [data[32 << 10 : 64 << 10]]
     assert ops.launches["match"] > before["match"]
     assert ops.launches["ring_decode"] > before["ring_decode"]
+
+
+def test_reach_kernels_equal_plain(card):
+    """Both reachability kernels on a level-3 parse's steps and on odd
+    steps (saturation and clipping), exactly."""
+    rng = np.random.default_rng(11)
+    odd = rng.integers(-40, 200, (1000, rch.CHUNK)).astype(np.int32)
+    calls = []
+    orig = rch.chunk_pointer_tables
+
+    def rec(step2):
+        calls.append(step2)
+        return orig(step2)
+
+    rch.chunk_pointer_tables = rec
+    try:
+        zt.compress_archive(_data(), frame_size=64 << 10, level=3, device=card)
+    finally:
+        rch.chunk_pointer_tables = orig
+    assert calls
+    for step2 in calls + [torch.from_numpy(odd).to(card)]:
+        tables = rch.chunk_pointer_tables(step2)
+        assert torch.equal(tables.cpu(), rch.tables_plain(step2.cpu()))
+        entry2 = torch.from_numpy(
+            rng.integers(-5, 140, tuple(step2.shape)).astype(np.int32)).to(card)
+        mask = rch.chunk_mark(tables, entry2)
+        assert torch.equal(mask.cpu(), rch.mark_plain(tables.cpu(), entry2.cpu()))
+
+
+def test_card_level3_and_patch_archives_equal_cpu_archives(card):
+    data = _data(96 << 10)
+    old = data[: 40 << 10]
+    before = dict(ops.launches)
+    for kw in (dict(level=3), dict(level=19, prefix=old, checksum=True)):
+        blob, st = zt.compress_archive(data, frame_size=32 << 10, device=card, **kw)
+        cpu_blob, _ = zt.compress_archive(data, frame_size=32 << 10, device="cpu", **kw)
+        assert blob == cpu_blob
+    for i in range(st.num_frames):
+        got, _end = zt.decompress_frame(blob, st.frame_start_comp(i), prefix=old, device=card)
+        assert got == data[st.frame_start_decomp(i) : st.frame_end_decomp(i)]
+    for k in ("reach_tables", "reach_mark", "fse"):
+        assert ops.launches[k] > before[k]

@@ -1,11 +1,12 @@
 """zeekstd_tpu_torch - the PyTorch/CUDA port of zeekstd_tpu's archive path.
 
-Seekable-Zstandard archive encode at level 1 and fused archive decode on
-an NVIDIA H100, through four hand-written CUDA kernels (``csrc/``): the
-LZ77 match finder, the FSE sequence encoder, and the two fused decoders.
-Archives are byte-identical to ``zeekstd_tpu.tpu_archive`` on its
-level-1 match-kernel route; this package imports neither JAX nor
-``zeekstd_tpu``.
+Seekable-Zstandard archive encode at levels 1-19 (with patch-mode
+prefixes) and fused archive and frame decode on an NVIDIA H100, through
+six hand-written CUDA kernels (``csrc/``): the level-1 LZ77 match finder,
+the two chunked-reachability kernels of the parallel parse, the FSE
+sequence encoder, and the two fused decoders. Archives are
+byte-identical to ``zeekstd_tpu.tpu_archive.tpu_compress_archive``; this
+package imports neither JAX nor ``zeekstd_tpu``.
 
 Entry points run on the CUDA card unless called with ``device="cpu"``,
 which runs each kernel's plain PyTorch version.
@@ -16,6 +17,7 @@ from .archive import (
     compress_archive,
     decode_frames,
     decompress_archive,
+    decompress_frame,
     from_reference_arrays,
 )
 from .device import phase_records, phase_timer, resolve_device, set_timing
@@ -27,6 +29,7 @@ __all__ = [
     "compress_archive",
     "decode_frames",
     "decompress_archive",
+    "decompress_frame",
     "from_reference_arrays",
     "phase_records",
     "phase_timer",

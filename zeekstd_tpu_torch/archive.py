@@ -1,25 +1,26 @@
-"""Seekable archive encode (level 1) and fused decode on the CUDA card.
+"""Seekable archive encode (levels 1-19, patch mode) and fused decode on
+the CUDA card.
 
-Port of the kernel routes of ``zeekstd_tpu/tpu_archive.py``.
+Port of the archive routes of ``zeekstd_tpu/tpu_archive.py``.
 
 Encode (``compress_archive``):
-  device  match kernel: LZ77 parse + per-block statistics, all frames
-  host    literal / sequence table decisions from the pulled statistics
+  device  parse + per-block statistics, all frames: the match kernel
+          (level 1) or the parallel parse with the chunked reachability
+          kernels (every other level, and prefix mode)
+  host    literal / sequence table decisions from the pulled statistics;
+          frames whose parse overflowed are encoded on the host
   device  FSE kernel (sequence bitstreams) + Huffman literal streams
   host    byte-exact layout of every frame (run segments)
   device  assembly of the compressed frame rows
 
-Decode (``decompress_archive``, ``decode_frames``):
+Decode (``decompress_archive``, ``decode_frames``, ``decompress_frame``):
   host    plan every frame, decode the Huffman literal streams (native)
   device  one fused kernel decodes every FSE stream and executes every
-          sequence: the ring route when every declared window is at most
-          512 KiB, the wide route otherwise (``ZEEKSTD_TPU_RING=0`` forces
-          the wide route)
+          sequence: the ring route when every declared window (and
+          prefix) is at most 512 KiB, the wide route otherwise
+          (``ZEEKSTD_TPU_RING=0`` forces the wide route)
   host    post-kernel checks: bad flag, literal count, content size,
           seek-table size, XXH64
-
-Inputs the port does not cover yet raise ``NotImplementedError`` naming
-the ROADMAP.md item that will cover them.
 """
 
 from __future__ import annotations
@@ -33,6 +34,7 @@ from .codec import frame as frame_mod
 from .codec import huffman as huf
 from .codec import literals as lit_mod
 from .codec import sequences as seq_mod
+from .codec.compress import compress_frame
 from .codec.seq_encode import _choose_table, write_num_sequences
 from .constants import SEEKABLE_MAX_FRAME_SIZE, ZSTD_BLOCK_SIZE_MAX
 from .device import phase_timer, resolve_device
@@ -42,6 +44,7 @@ from .ops import assemble, entropy
 from .ops import decode_kernel as dk
 from .ops import fse_kernel as fk
 from .ops import match_kernel as mk
+from .ops import match_tpu as mt
 from .ops import ring_kernel as rk
 from .plan import _plan_frame, _words_from_bytes
 from .seek_table import SeekTable
@@ -54,9 +57,6 @@ assert BLOCK_SIZE <= ZSTD_BLOCK_SIZE_MAX
 MAX_FRAME_SIZE = 8 << 20   # the match kernel's largest frame row
 WINDOW_CAP = 1 << 19       # match-kernel offsets stay inside 512 KiB
 LITB = 128 << 10           # a block's literal budget (the format's block cap)
-
-_TODO_LEVELS = "ROADMAP.md Queue 1 item 5 (levels 2-19, prefix mode, other frame sizes)"
-_TODO_OVERFLOW = "ROADMAP.md Queue 1 item 4 (host encoder for overflowing frames)"
 
 
 def from_reference_arrays(device=None, **arrays) -> dict[str, torch.Tensor]:
@@ -74,13 +74,9 @@ def from_reference_arrays(device=None, **arrays) -> dict[str, torch.Tensor]:
 
 
 def empty_frame(checksum: bool) -> bytes:
-    """The reference's ``compress_frame(b"")``: header, one empty last raw
-    block, and XXH64("") when checksummed."""
-    out = frame_mod.write_frame_header(0, 1024, checksum)
-    out += frame_mod.write_block_header(True, frame_mod.BLOCK_RAW, 0)
-    if checksum:
-        out += (loader.xxh64(b"") & 0xFFFF_FFFF).to_bytes(4, "little")
-    return out
+    """The frame of an empty input: header, one empty last raw block, and
+    XXH64("") when checksummed."""
+    return compress_frame(b"", level=1, checksum=checksum)
 
 
 def _checksum(data) -> int:
@@ -155,6 +151,110 @@ def _match_stats_packed_fn(frames_dev, meta, seq_bound: int, B: int, F: int):
         extrep_b,
     ], dim=1)
     return lits, stats, lm, ofv
+
+
+def _stats_tail(lls, mls, offs, n_seq, lits, n_lit, n_raw, n_valid, seq_bound: int, B: int):
+    """Per-frame code derivation and per-block statistics from the
+    parallel parse's triples (rows = frames). Takes true (cross-block)
+    literal runs and clamps the first ll of each block itself (adj_ll).
+    Returns (adj_ll, mls, ovs int64[F, seq_bound], packed stats int32[F, cols])."""
+    dev = lls.device
+    F = lls.shape[0]
+    lls, mls, offs = lls.long(), mls.long(), offs.long()
+    n_seq = n_seq.long()
+    sidx = torch.arange(seq_bound, dtype=torch.int64, device=dev)[None, :]
+    valid = sidx < n_seq[:, None]
+    out_len = lls + mls
+    starts = torch.cumsum(out_len, dim=1) - out_len
+    mstarts = starts + lls
+    blk = torch.clamp(mstarts // BLOCK_SIZE, 0, B - 1)
+    adj_ll = mstarts - torch.maximum(starts, blk * BLOCK_SIZE)
+    # Same-block rep1 coding over the WRITTEN (block-clamped) lls.
+    ovs = mt.rep1_offset_values(lls, adj_ll, mls, offs, n_seq, BLOCK_SIZE, seq_bound)
+    of_codes = mt.bit_length(torch.clamp(ovs, min=1)) - 1
+    ll_base = torch.from_numpy(seq_mod.LL_BASE.astype(np.int64)).to(dev)
+    ml_base = torch.from_numpy(seq_mod.ML_BASE.astype(np.int64)).to(dev)
+    ll_codes = torch.where(
+        adj_ll < 16, adj_ll,
+        torch.searchsorted(ll_base, adj_ll.contiguous(), right=True) - 1)
+    ml_codes = torch.where(
+        mls < 35, torch.clamp(mls - 3, min=0),
+        torch.searchsorted(ml_base, mls.contiguous(), right=True) - 1)
+
+    def block_sum(idx, vals, size, fill=0, reduce=None):
+        """Scatter into ``size`` bins plus one sink bin (dropped)."""
+        out = torch.full((F, size + 1), fill, dtype=torch.int64, device=dev)
+        if reduce is None:
+            out = out.scatter_add(1, idx, vals)
+        else:
+            out = out.scatter_reduce(1, idx, vals, reduce, include_self=True)
+        return out[:, :size]
+
+    one = valid.long()
+    tgt = torch.where(valid, blk, B)
+    seq_cnt = block_sum(tgt, one, B)
+    first_idx = block_sum(tgt, torch.where(valid, sidx, seq_bound).expand(F, -1), B,
+                          fill=seq_bound, reduce="amin")
+    ml_sum = block_sum(tgt, torch.where(valid, mls, 0), B)
+    ll_hist = block_sum(torch.where(valid, blk * 36 + ll_codes, B * 36), one, B * 36)
+    ml_hist = block_sum(torch.where(valid, blk * 53 + ml_codes, B * 53), one, B * 53)
+    of_hist = block_sum(torch.where(valid, blk * 32 + of_codes, B * 32), one, B * 32)
+
+    # Literal-to-block assignment: block b holds litcnt_b = block_len_b -
+    # ml_sum_b literal bytes, in stream order.
+    bi = torch.arange(B, dtype=torch.int64, device=dev)[None, :]
+    block_len = torch.clamp(n_valid.long()[:, None] - bi * BLOCK_SIZE, 0, BLOCK_SIZE)
+    litcnt = block_len - ml_sum
+    litcum = torch.cumsum(litcnt, dim=1)
+    lidx = torch.arange(lits.shape[1], dtype=torch.int64, device=dev)[None, :]
+    lit_blk = torch.searchsorted(litcum, lidx.expand(F, -1).contiguous(), right=True)
+    lit_valid = lidx < n_lit.long()[:, None]
+    lit_hist = block_sum(
+        torch.where(lit_valid, torch.clamp(lit_blk, 0, B - 1) * 256 + lits.long(), B * 256),
+        lit_valid.long().expand(F, -1), B * 256)
+
+    stats = torch.cat([
+        torch.stack([n_seq, n_lit.long(), n_raw.long()], dim=1),
+        seq_cnt, first_idx, ml_sum, litcnt, ll_hist, ml_hist, of_hist, lit_hist,
+    ], dim=1).to(torch.int32)
+    return adj_ll, mls, ovs, stats
+
+
+def _parse_stats_packed_fn(frames_dev, lengths, seq_bound: int, B: int, level: int,
+                           prefix_len: int = 0):
+    """Parse every frame row with the parallel parse and derive its
+    statistics. Rows are prefix‖frame when ``prefix_len`` > 0 (patch
+    mode: sequences may reference the prefix). Returns (literal rows
+    uint8[F, n] compacted per frame, stats int32[F, cols], adj_ll, mls,
+    ovs int64[F, seq_bound])."""
+    dev = frames_dev.device
+    n_valid = torch.from_numpy(np.asarray(lengths, np.int64)).to(dev)
+    lls, mls, offs, n_seq, lits, n_lit, n_raw = mt.parse_frame(
+        frames_dev, BLOCK_SIZE, seq_bound, n_valid=prefix_len + n_valid, level=level,
+        start=prefix_len,
+    )
+    adj_ll, mls, ovs, stats = _stats_tail(lls, mls, offs, n_seq, lits, n_lit, n_raw,
+                                          n_valid, seq_bound, B)
+    return lits, stats, adj_ll, mls, ovs
+
+
+def _parse_job_rows(adj_ll, mls, ovs, seq_cnt, first_idx, B: int):
+    """The FSE kernel's per-record rows from the parallel parse: record
+    f*B + b holds block b's sequences of frame f, lm = adj_ll << 16 | ml
+    and ofv, zero past the block's count (both fields fit 16 bits: a
+    block is 32 KiB and every match is at least 4 bytes)."""
+    dev = adj_ll.device
+    F, seq_bound = adj_ll.shape
+    SBd = BLOCK_SIZE // 4
+    k = torch.arange(SBd, dtype=torch.int64, device=dev)
+    first = torch.from_numpy(np.asarray(first_idx, np.int64)).to(dev)
+    cnt = torch.from_numpy(np.asarray(seq_cnt, np.int64)).to(dev)
+    idx = torch.clamp(first[:, :, None] + k, max=seq_bound - 1).reshape(F, B * SBd)
+    live = (k < cnt[:, :, None]).reshape(F, B * SBd)
+    lm = torch.where(live, torch.gather((adj_ll << 16) | mls, 1, idx), 0)
+    ofv = torch.where(live, torch.gather(ovs, 1, idx), 0)
+    return (lm.to(torch.int32).reshape(F * B, SBd).contiguous(),
+            ofv.to(torch.int32).reshape(F * B, SBd).contiguous())
 
 
 def _unpack_stats(stats_np, B):
@@ -430,12 +530,13 @@ def _entropy_fn(meta_j, lm, ofv, pool, lits_d, hin, seg_bound, hword_bound):
 
 
 def _layout_archive(
-    datas, blocks, fse_bits, huf_bits,
+    datas, blocks, overflow, fse_bits, huf_bits,
     fse_byte_shape, huf_byte_shape, lits_shape, frames_shape,
-    checksum: bool, window_cap: int | None = None,
+    checksum: bool, prefix_len: int = 0, window_cap: int | None = None,
 ):
     """Byte-exact archive layout (host): one SegmentPlan over the frames
-    ``datas`` (list of per-frame bytes). Returns (plan, d_sizes)."""
+    ``datas`` (list of per-frame bytes). Frames whose parse overflowed
+    are encoded on the host. Returns (plan, d_sizes)."""
     F = len(datas)
     plan = assemble.SegmentPlan(F, fse_byte_shape, huf_byte_shape, lits_shape,
                                 frames_shape)
@@ -445,12 +546,18 @@ def _layout_archive(
         fdata = datas[f]
         flen = len(fdata)
         d_sizes.append(flen)
+        if overflow[f]:
+            plan.add_static(f, compress_frame(fdata, level=1, checksum=checksum))
+            while bi < len(blocks) and blocks[bi]["frame"] == f:
+                bi += 1
+            continue
         if flen == 0:
             plan.add_static(f, empty_frame(checksum))
             continue
         # Declared window: match-kernel offsets are bounded by its 512 KiB
-        # window, so frames declare the tighter bound (ring-route decode).
-        window = flen
+        # window, so its frames declare the tighter bound (ring-route
+        # decode); the parallel parse reaches the whole frame and prefix.
+        window = flen + prefix_len
         if window_cap is not None:
             window = min(window, window_cap)
         plan.add_static(
@@ -464,7 +571,7 @@ def _layout_archive(
             bi += 1
             last = b == n_blocks_f - 1
             _plan_block(plan, d, f, b, last, fdata, fse_bits, huf_bits,
-                        emit_state)
+                        emit_state, prefix_len)
         if checksum:
             plan.add_static(f, _checksum(fdata).to_bytes(4, "little"))
     return plan, d_sizes
@@ -475,7 +582,8 @@ def _stream_len(bits: int) -> int:
     return int(bits) // 8 + 1
 
 
-def _plan_block(plan, d, f, b, last, fdata, fse_bits, huf_bits, emit_state):
+def _plan_block(plan, d, f, b, last, fdata, fse_bits, huf_bits, emit_state,
+                prefix_len: int = 0):
     """Lay out one block's output segments. Every section length is
     host-exact here (stream byte counts come from the pulled bit counts),
     so raw-vs-compressed is decided exactly like the host encoder.
@@ -567,7 +675,8 @@ def _plan_block(plan, d, f, b, last, fdata, fse_bits, huf_bits, emit_state):
             plan.add_static(
                 f, frame_mod.write_block_header(last, frame_mod.BLOCK_RAW, blen)
             )
-            plan.add_raw(f, f, raw_block_off, blen)
+            # With a prefix the frame's bytes start prefix_len into its row.
+            plan.add_raw(f, f, prefix_len + raw_block_off, blen)
         return
 
     plan.add_static(
@@ -604,9 +713,20 @@ def compress_archive(
     frame_spans=None,
     device=None,
 ):
-    """Compress ``data`` (bytes, or a ``StagedInput``) into seekable frames;
-    returns (frames_blob, SeekTable), byte-identical to the reference's
-    ``tpu_compress_archive`` on its level-1 match-kernel route.
+    """Compress ``data`` (bytes, or a ``StagedInput``) into seekable frames
+    at ``level`` (1-19); returns (frames_blob, SeekTable), byte-identical
+    to the reference's ``tpu_compress_archive``.
+
+    Route, as the reference chooses it: level 1 with a frame size that is
+    a multiple of 32 KiB and at most 8 MiB, under 2 GiB in all and no
+    prefix takes the match kernel; everything else the parallel parse
+    (``ops/match_tpu.py``). Frames whose parse overflows the sequence
+    bound are encoded on the host (``codec/compress.py``, level 1).
+
+    ``prefix`` enables patch mode: every frame may reference it, like
+    zstd's ref_prefix. The parse needs block alignment, so only the last
+    floor(len/32 KiB) blocks of the prefix are searched (a decoder given
+    the whole prefix sees the same bytes at those offsets).
 
     With ``return_device=True`` the final pull is skipped and
     (device rows uint8[F, frame_bound], c_sizes, SeekTable) is returned.
@@ -621,7 +741,11 @@ def compress_archive(
             device = staged.device
         data = staged.data
     dev = resolve_device(device)
-    if frame_spans is not None and (prefix or staged is not None):
+    plen = (len(prefix) // BLOCK_SIZE) * BLOCK_SIZE
+    prefix_c = prefix[len(prefix) - plen :] if plen else b""
+    if plen and staged is not None:
+        raise ValueError("StagedInput cannot carry a prefix")
+    if frame_spans is not None and (plen or staged is not None):
         raise ValueError("frame_spans cannot combine with prefix/StagedInput")
     n = len(data)
     if n == 0:
@@ -629,29 +753,32 @@ def compress_archive(
         st = SeekTable()
         st.log_frame(len(blob), 0)
         return blob, st
-    if level != 1:
-        raise NotImplementedError(f"level {level}: only level 1 is ported; see {_TODO_LEVELS}")
-    if prefix:
-        raise NotImplementedError(f"prefix (patch mode) is not ported; see {_TODO_LEVELS}")
 
     if frame_spans is not None:
         F = len(frame_spans)
         frame_size = -(-max(l for _s, l in frame_spans) // BLOCK_SIZE) * BLOCK_SIZE
     else:
         F = -(-n // frame_size)
-    if frame_size % BLOCK_SIZE or frame_size > MAX_FRAME_SIZE or F * frame_size >= 1 << 31:
-        raise NotImplementedError(
-            f"frame_size {frame_size}: the match kernel takes multiples of "
-            f"{BLOCK_SIZE} up to {MAX_FRAME_SIZE}; see {_TODO_LEVELS}"
-        )
-    B = frame_size // BLOCK_SIZE
+    B = -(-frame_size // BLOCK_SIZE)
     seq_bound = min(1 << 18, max(2048, frame_size // 8))
+    use_match_kernel = (
+        level == 1
+        and frame_size % BLOCK_SIZE == 0
+        and frame_size <= MAX_FRAME_SIZE
+        and F * frame_size < (1 << 31)
+        and plen == 0
+    )
 
-    if frame_spans is not None:
-        rows = np.zeros((F, frame_size), np.uint8)
+    if frame_spans is not None or plen:
+        # Rows are prefix||frame in patch mode (the prefix is referenced
+        # again at every frame start).
+        rows = np.zeros((F, plen + frame_size), np.uint8)
+        rows[:, :plen] = np.frombuffer(prefix_c, np.uint8)
         lengths = np.zeros(F, np.int32)
-        for i, (s, l) in enumerate(frame_spans):
-            rows[i, :l] = np.frombuffer(data[s : s + l], np.uint8)
+        spans = frame_spans or [(i * frame_size, min(frame_size, n - i * frame_size))
+                                for i in range(F)]
+        for i, (s, l) in enumerate(spans):
+            rows[i, plen : plen + l] = np.frombuffer(data[s : s + l], np.uint8)
             lengths[i] = l
         with phase_timer("enc.input_stage") as _pt:
             frames_dev = torch.from_numpy(rows).to(dev)
@@ -661,27 +788,28 @@ def compress_archive(
             staged = StagedInput(data, frame_size, device=dev)
         frames_dev = staged.frames_dev
         lengths = staged.lengths
-    frames_shape = (F, frame_size)
+    frames_shape = tuple(frames_dev.shape)
 
-    # --- parse + stats (match kernel) ------------------------------------
+    # --- parse + stats ---------------------------------------------------
     with phase_timer("enc.parse_dispatch") as _pt:
-        meta_mk = mk.build_records(
-            F, B, BLOCK_SIZE, frame_size, lengths, n_pad=mk.bucket_nrecp(F * B),
-        )
-        lits_d, stats_d, lm, ofv = _match_stats_packed_fn(
-            frames_dev, torch.from_numpy(meta_mk).to(dev), seq_bound, B, F,
-        )
+        if use_match_kernel:
+            meta_mk = mk.build_records(
+                F, B, BLOCK_SIZE, frame_size, lengths, n_pad=mk.bucket_nrecp(F * B),
+            )
+            lits_d, stats_d, lm, ofv = _match_stats_packed_fn(
+                frames_dev, torch.from_numpy(meta_mk).to(dev), seq_bound, B, F,
+            )
+        else:
+            lits_d, stats_d, adj_ll, mls_d, ovs_d = _parse_stats_packed_fn(
+                frames_dev, lengths, seq_bound, B, level, prefix_len=plen,
+            )
         _pt.fence(stats_d)
 
     with phase_timer("enc.stats_pull"):
         stats = _unpack_stats(stats_d.cpu().numpy(), B)
 
+    # Frames whose parse overflowed are encoded on the host.
     overflow = stats["n_raw"] > seq_bound
-    if overflow.any():
-        raise NotImplementedError(
-            f"frames {np.nonzero(overflow)[0].tolist()} overflow the parse's "
-            f"sequence bound; see {_TODO_OVERFLOW}"
-        )
 
     # --- host: per-block decisions ---------------------------------------
     with phase_timer("enc.host_decisions"):
@@ -689,13 +817,17 @@ def compress_archive(
             F, lengths, overflow, stats["seq_cnt"], stats["first_idx"],
             stats["litcnt"], stats["ll_hist"], stats["ml_hist"],
             stats["of_hist"], stats["lit_hist"],
-            lit_stride=BLOCK_SIZE, extrep=stats.get("extrep"),
+            lit_stride=BLOCK_SIZE if use_match_kernel else None,
+            extrep=stats.get("extrep"),
         )
 
     # --- entropy: FSE kernel + Huffman streams ---------------------------
     fse_words = fse_bits = huf_words = huf_bits = None
     with phase_timer("enc.fse_dispatch") as _pt:
         if fse_jobs:
+            if not use_match_kernel:
+                lm, ofv = _parse_job_rows(adj_ll, mls_d, ovs_d, stats["seq_cnt"],
+                                          stats["first_idx"], B)
             meta_j, pool, _ = _fse_kernel_inputs(fse_jobs, B)
             hin = seg_bound = hword_bound = None
             if huf_jobs:
@@ -726,10 +858,11 @@ def compress_archive(
                 for f in range(F)
             ]
         plan, d_sizes = _layout_archive(
-            datas, blocks, fse_bits, huf_bits,
+            datas, blocks, overflow, fse_bits, huf_bits,
             (fse_words.shape[0], fse_words.shape[1] * 4),
             (huf_words.shape[0], huf_words.shape[1] * 4),
-            tuple(lits_d.shape), frames_shape, checksum, window_cap=WINDOW_CAP,
+            tuple(lits_d.shape), frames_shape, checksum, prefix_len=plen,
+            window_cap=WINDOW_CAP if use_match_kernel else None,
         )
         seg_dest, seg_base, static_pool, c_sizes = plan.build_runs()
         frame_bound = 1 << max((int(c_sizes.max()) - 1).bit_length(), 7)
@@ -852,6 +985,22 @@ def decode_frames(blob, spans, verify_checksum: bool = True, device=None):
     )
 
 
+def decompress_frame(frame: bytes, pos: int = 0, verify_checksum: bool = True,
+                     prefix: bytes = b"", device=None):
+    """Decode the one zstd frame at ``pos`` of ``frame`` on the fused
+    route; returns (bytes, end_pos). ``prefix`` is zstd's ref_prefix:
+    match offsets may reach before the frame into it (patch mode)."""
+    dev = resolve_device(device)
+    hdr, plan, fpos = _plan_frame(frame, pos)
+    stream_list, seq_blocks, frame_rows = _collect([(hdr, plan, fpos)])
+    dec_list = _huf_batch_host(stream_list)
+    out = _fused_exec_dispatch(
+        frame, [(hdr, plan, fpos)], frame_rows, seq_blocks, dec_list, None,
+        verify_checksum, False, dev, prefixes=[prefix] if prefix else None,
+    )
+    return out, fpos + (4 if hdr.has_checksum else 0)
+
+
 def _huf_batch_host(stream_list):
     """Host Huffman literal decode (native), in stream order. Tables wider
     than the native decoder's 11 bits take the Python decoder, as in the
@@ -911,13 +1060,15 @@ def _fse_stage(seq_blocks):
     return words, starts, tidx, packed, logs_t, word_bound
 
 
-def use_ring_route(plans, max_bound: int) -> bool:
+def use_ring_route(plans, max_bound: int, plens=None) -> bool:
     """The reference's route rule: the ring kernel when every declared
-    window is at most 512 KiB (and rows stay under 2^27 bytes), unless
-    ``ZEEKSTD_TPU_RING=0``."""
+    window and every prefix is at most 512 KiB (and rows stay under 2^27
+    bytes), unless ``ZEEKSTD_TPU_RING=0``."""
+    plens = plens or [0] * len(plans)
     return (
         os.environ.get("ZEEKSTD_TPU_RING", "") != "0"
-        and all((hdr.window_size or 0) <= rk.RING for hdr, _p, _c in plans)
+        and all((hdr.window_size or 0) <= rk.RING and plen <= rk.RING
+                for (hdr, _p, _c), plen in zip(plans, plens))
         and max_bound <= (1 << 27)
     )
 
@@ -953,13 +1104,21 @@ def _fused_exec_fn(consts, meta, words, tables, pools, nlit_f, OUTB, dev):
 
 def _fused_exec_dispatch(
     blob, plans, frame_rows, seq_blocks, dec_list, seek_table,
-    verify_checksum, return_device, dev, return_parts=False,
+    verify_checksum, return_device, dev, return_parts=False, prefixes=None,
 ):
     """Decode every planned frame with one fused-kernel launch.
 
     ``dec_list``: host-decoded Huffman literal streams in plan order;
-    each frame's literal pool is assembled on the host and staged once."""
+    each frame's literal pool is assembled on the host and staged once.
+
+    ``prefixes``: optional per-frame ref_prefix bytes. Each rides as
+    leading literal records (at most LITB bytes each, the wide route's
+    literal window) that match offsets reach into, and is sliced off the
+    output."""
     F = len(plans)
+    plens = [len(p) if p else 0 for p in prefixes] if prefixes else [0] * F
+    if any(plens) and return_device:
+        raise ValueError("prefixes cannot combine with return_device")
     bounds = []
     for fi, (hdr, plan, _) in enumerate(plans):
         if seek_table is not None:
@@ -972,9 +1131,9 @@ def _fused_exec_dispatch(
             # A corrupt header must not drive a giant allocation
             # (seekable frames are capped at 1 GiB).
             raise corruption_detected("declared frame size exceeds cap")
-        bounds.append(b)
+        bounds.append(b + plens[fi])
     max_bound = max(bounds)
-    use_ring = use_ring_route(plans, max_bound)
+    use_ring = use_ring_route(plans, max_bound, plens)
 
     with phase_timer("dec.fused_layout"):
         if seq_blocks:
@@ -992,6 +1151,10 @@ def _fused_exec_dispatch(
         for fi, (hdr, plan, _) in enumerate(plans):
             rows = list(frame_rows[fi])
             blocks = []
+            if plens[fi]:
+                pool_parts[fi].append(np.frombuffer(prefixes[fi], np.uint8))
+                blocks += [("lit", min(LITB, plens[fi] - o))
+                           for o in range(0, plens[fi], LITB)]
             for kind, *args in plan:
                 if kind == "raw":
                     data_b = args[0]
@@ -1060,7 +1223,7 @@ def _fused_exec_dispatch(
             raise corruption_detected("match offset beyond window or literal overrun")
         if litc[fi] != nlit_f[fi]:
             raise corruption_detected("literal budget mismatch")
-        if hdr.content_size is not None and totals[fi] != hdr.content_size:
+        if hdr.content_size is not None and totals[fi] - plens[fi] != hdr.content_size:
             raise corruption_detected("frame content size mismatch")
         if seek_table is not None and totals[fi] != bounds[fi]:
             raise corruption_detected("frame size disagrees with seek table")
@@ -1072,7 +1235,7 @@ def _fused_exec_dispatch(
         out = out_dev.cpu().numpy()
         parts = []
         for fi, (hdr, _p, cpos) in enumerate(plans):
-            result = out[fi, : int(totals[fi])].tobytes()
+            result = out[fi, plens[fi] : int(totals[fi])].tobytes()
             if hdr.has_checksum and verify_checksum:
                 stored = int.from_bytes(blob[cpos : cpos + 4], "little")
                 if _checksum(result) != stored:

@@ -1,9 +1,12 @@
 """Device stages of the archive pipeline.
 
-Four CUDA kernels (``csrc/``) carry the main path, each behind a wrapper
-in its module that also holds the kernel's plain PyTorch version:
+Six CUDA kernels (``csrc/``) carry the archive paths, each behind a
+wrapper in its module that also holds the kernel's plain PyTorch version:
 
 - ``match_kernel.match`` - level-1 LZ77 parse, one thread block per frame;
+- ``reach_kernel.chunk_pointer_tables`` and ``reach_kernel.chunk_mark`` -
+  the anchor pass of the parallel parse (levels 2-19, prefix mode, and
+  level-1 frame sizes the match kernel does not take, ``match_tpu.py``);
 - ``fse_kernel.fse_encode`` - FSE sequence bitstreams, one block per job;
 - ``decode_kernel.wide_decode`` and ``ring_kernel.ring_decode`` - fused FSE
   decode and sequence execution, one block per frame.
@@ -13,7 +16,8 @@ tensors it launches its kernel or raises. ``launches`` counts kernel
 launches per wrapper (plain-version calls do not count).
 """
 
-launches = {"match": 0, "fse": 0, "ring_decode": 0, "wide_decode": 0}
+launches = {"match": 0, "reach_tables": 0, "reach_mark": 0, "fse": 0,
+            "ring_decode": 0, "wide_decode": 0}
 
 
 def reset_launches() -> None:
