@@ -39,6 +39,29 @@ Phases (any failure raises; nothing is caught):
                FSE kernel and the wide decoder must have launched.
   4b. timing - as phase 4 for the level-3 configuration (decode on the
                wide route), and the kernels of the level-3 path.
+  2c. routes - the 256 KiB input's level-1 (96 KiB frames) and level-3
+               (32 KiB frames) archives decoded on the card under
+               ZEEKSTD_TPU_EXEC=serial and =doubling, exactly; every exec,
+               FSE-decode and reachability call on those routes equals its
+               plain version exactly; synthetic exec rows (every repeat
+               form, overlapping matches of period 1 and 3, a match across
+               a 128-byte row, literal and RLE records, a block sliced at
+               SBd, a bad offset) through the exec kernel and its plain
+               version; the byte histogram and table lookup at 10 MiB
+               (their launches counted alone) against their plain versions
+               and the one-call PyTorch equivalents (bincount, take).
+  3c. routes, full size - the level-3 archive of phase 3b (Foot seek
+               table) decoded on the serial route, then on the doubling
+               route, each alone between a reset and a read of the launch
+               counts: the serial route must launch exec, fse_decode and
+               both reachability kernels, the doubling route the same but
+               exec, and neither any other kernel; every call of those
+               decodes equals its plain version. Then the flipped bit on
+               each route and frames 3-5 through decompress_frame on the
+               doubling route.
+  4c. timing - 5 warm level-3 decodes per route (checksums off, output
+               on the card): median and spread in MiB/s, the fenced phase
+               split, and the four new kernels' rows.
 
 Prints the card's name and power limit, one JSON line with the kernel
 table, and as its last line {"ok": true, "device": {...}}. With --out
@@ -52,6 +75,7 @@ import random
 import subprocess
 import sys
 import time
+import types
 
 import numpy as np
 import torch
@@ -118,11 +142,12 @@ def log(msg):
 
 
 class Recorder:
-    """Wraps the six kernel wrappers to keep the inputs the pipeline
-    gives them (the calls still go through the wrappers)."""
+    """Wraps the kernel wrappers to keep the inputs the pipeline gives
+    them (the calls still go through the wrappers)."""
 
     def __init__(self):
-        from zeekstd_tpu_torch.ops import (decode_kernel, fse_kernel, match_kernel,
+        from zeekstd_tpu_torch.ops import (byte_kernels, decode_kernel, entropy,
+                                           exec_kernel, fse_kernel, match_kernel,
                                            reach_kernel, ring_kernel)
 
         self.sites = {
@@ -132,6 +157,10 @@ class Recorder:
             "fse": (fse_kernel, "fse_encode"),
             "ring_decode": (ring_kernel, "ring_decode"),
             "wide_decode": (decode_kernel, "wide_decode"),
+            "fse_decode": (entropy, "fse_decode_sequences"),
+            "exec": (exec_kernel, "serial_exec"),
+            "byte_histogram": (byte_kernels, "byte_histogram"),
+            "table_lookup": (byte_kernels, "table_lookup"),
         }
         self.calls = {k: [] for k in self.sites}
         self._orig = {}
@@ -160,44 +189,62 @@ def _max_err(a, b):
     return int((a.to(torch.int64) - b.to(torch.int64)).abs().max())
 
 
-def compare(name, a, k, mods):
+def kernel_modules():
+    from zeekstd_tpu_torch.ops import (byte_kernels, decode_kernel, entropy, exec_kernel,
+                                       fse_kernel, match_kernel, reach_kernel, ring_kernel)
+
+    return types.SimpleNamespace(mk=match_kernel, fk=fse_kernel, dk=decode_kernel,
+                                 rk=ring_kernel, rch=reach_kernel, ek=exec_kernel,
+                                 ent=entropy, bk=byte_kernels)
+
+
+def _rows_err(out, mo, out0, mo0):
+    """Max error of the meta lanes and of each frame's bytes in [0, total)."""
+    F = mo.shape[0]
+    ob, ob0 = out.reshape(F, -1), out0.reshape(F, -1)
+    err = _max_err(mo[:, :3], mo0[:, :3])
+    for f, tot in enumerate(mo0[:, 0].tolist()):
+        err = max(err, _max_err(ob[f, :tot], ob0[f, :tot]))
+    return err
+
+
+def compare(name, a, k, m):
     """Run the plain version on the kernel's inputs and compare the valid
     regions exactly. Returns (max_abs_err, plain seconds)."""
-    mk, fk, dk, rk, rch = mods
     sync = torch.cuda.synchronize
     sync()
+    cpu = [t.cpu() for t in a]
     if name in ("reach_tables", "reach_mark"):
         if name == "reach_tables":
-            out = rch.chunk_pointer_tables(*a)
+            out = m.rch.chunk_pointer_tables(*a)
         else:
-            out = rch.chunk_mark(*a)
+            out = m.rch.chunk_mark(*a)
         sync()
-        cpu = [t.cpu() for t in a]
         t0 = time.perf_counter()
-        ref = rch.tables_plain(*cpu) if name == "reach_tables" else rch.mark_plain(*cpu)
+        ref = m.rch.tables_plain(*cpu) if name == "reach_tables" else m.rch.mark_plain(*cpu)
         t_plain = time.perf_counter() - t0
         err = _max_err(out, ref.to(out.device))
     elif name == "match":
-        out = mk.match(*a, **k)
+        out = m.mk.match(*a, **k)
         sync()
         t0 = time.perf_counter()
-        ref = mk.match_plain(*a, k["BLK"], k["SBd"])
+        ref = m.mk.match_plain(*a, k["BLK"], k["SBd"])
         t_plain = time.perf_counter() - t0
         lm, ofv, litw, stat = out
         lm0, ofv0, litw0, stat0 = (t.to(lm.device) for t in ref)
         err = _max_err(stat, stat0)
-        nseq = stat0[:, mk.ST_NSEQ].tolist()
-        litcnt = stat0[:, mk.ST_LITCNT].tolist()
+        nseq = stat0[:, m.mk.ST_NSEQ].tolist()
+        litcnt = stat0[:, m.mk.ST_LITCNT].tolist()
         lb, lb0 = litw.view(torch.uint8), litw0.view(torch.uint8)
         for r in range(stat.shape[0]):
             err = max(err, _max_err(lm[r, : nseq[r]], lm0[r, : nseq[r]]),
                       _max_err(ofv[r, : nseq[r]], ofv0[r, : nseq[r]]),
                       _max_err(lb[r, : litcnt[r]], lb0[r, : litcnt[r]]))
     elif name == "fse":
-        words, bits = fk.fse_encode(*a, **k)
+        words, bits = m.fk.fse_encode(*a, **k)
         sync()
         t0 = time.perf_counter()
-        w0, b0 = fk.fse_plain(*a, k["SBd"], k["WBo"])
+        w0, b0 = m.fk.fse_plain(*a, k["SBd"], k["WBo"])
         t_plain = time.perf_counter() - t0
         w0, b0 = w0.to(words.device), b0.to(words.device)
         err = _max_err(bits, b0)
@@ -205,85 +252,122 @@ def compare(name, a, k, mods):
             if nb:
                 nw = nb // 32 + 1
                 err = max(err, _max_err(words[j, :nw], w0[j, :nw]))
+    elif name == "exec":
+        out, mo = m.ek.serial_exec(*a, **k)
+        sync()
+        t0 = time.perf_counter()
+        out0, mo0 = m.ek.exec_plain(*cpu, k["OUTB"], k["LITB"], k["SBd"])
+        t_plain = time.perf_counter() - t0
+        err = _rows_err(out.cpu(), mo.cpu(), out0, mo0)
+    elif name == "fse_decode":
+        got = m.ent.fse_decode_sequences(*a, **k)
+        sync()
+        t0 = time.perf_counter()
+        want = m.ent.fse_decode_plain(*cpu, k["seq_bound"])
+        t_plain = time.perf_counter() - t0
+        err = max(_max_err(g.cpu(), w) for g, w in zip(got, want))
+    elif name == "byte_histogram":
+        got = m.bk.byte_histogram(*a, **k)
+        sync()
+        t0 = time.perf_counter()
+        want = m.bk.histogram_plain(*cpu, **k)
+        t_plain = time.perf_counter() - t0
+        err = _max_err(got.cpu(), want)
+    elif name == "table_lookup":
+        got = m.bk.table_lookup(*a)
+        sync()
+        t0 = time.perf_counter()
+        want = m.bk.lookup_plain(*cpu)
+        t_plain = time.perf_counter() - t0
+        err = _max_err(got.cpu(), want)
     else:
         ring = name == "ring_decode"
-        if ring:
-            out, mo = rk.ring_decode(*a, **k)
-        else:
-            out, mo = dk.wide_decode(*a, **k)
+        out, mo = (m.rk.ring_decode if ring else m.dk.wide_decode)(*a, **k)
         sync()
         t0 = time.perf_counter()
         if ring:
-            out0, mo0 = rk.ring_plain(*a, k["OUTB"])
+            out0, mo0 = m.rk.ring_plain(*a, k["OUTB"])
         else:
-            out0, mo0 = dk.wide_plain(*a, k["OUTB"], k["LITB"])
+            out0, mo0 = m.dk.wide_plain(*a, k["OUTB"], k["LITB"])
         t_plain = time.perf_counter() - t0
-        out0, mo0 = out0.to(out.device), mo0.to(out.device)
         F = mo.shape[0]
-        ob = out.reshape(F, -1).view(torch.uint8) if ring else out.reshape(F, -1)
-        ob0 = out0.reshape(F, -1).view(torch.uint8) if ring else out0.reshape(F, -1)
-        err = _max_err(mo[:, :3], mo0[:, :3])
-        for f, tot in enumerate(mo0[:, 0].tolist()):
-            err = max(err, _max_err(ob[f, :tot], ob0[f, :tot]))
+        if ring:
+            out, out0 = out.view(torch.uint8), out0.view(torch.uint8)
+        err = _rows_err(out.reshape(F, -1).cpu(), mo.cpu(), out0.reshape(F, -1).cpu(),
+                        mo0.cpu())
     if err != 0:
         raise AssertionError(f"{name} kernel disagrees with its plain version (max abs err {err})")
     return err, t_plain
 
 
-def read_bytes(name, a, mods):
-    """Input bytes the function must read for these inputs, each once (the
-    part of each input the data uses)."""
-    mk, fk, dk, rk, rch = mods
+def moved_bytes(name, a, result, m):
+    """Bytes the function must move for these inputs: each input byte the
+    data uses read once, each output byte written once."""
     if name in ("reach_tables", "reach_mark"):
-        return sum(t.numel() * 4 for t in a)  # the steps; the tables and entries
+        return sum(t.numel() * 4 for t in a) + result.numel() * 4
     if name == "match":
         consts, meta, words = a
-        m = meta.reshape(-1, mk.META_COLS).cpu()
-        return int(m[:, mk.M_BLEN].sum()) + meta.numel() * 4 + consts.numel() * 4
+        mt = meta.reshape(-1, m.mk.META_COLS).cpu()
+        lm, ofv, litw, stat = result
+        nseq = int(stat[:, m.mk.ST_NSEQ].sum())
+        return (int(mt[:, m.mk.M_BLEN].sum()) + meta.numel() * 4 + consts.numel() * 4
+                + nseq * 8 + int(stat[:, m.mk.ST_LITCNT].sum()) + stat.numel() * 4)
     if name == "fse":
         consts, meta, lm, ofv, tables = a
-        m = meta.reshape(-1, fk.JMETA_COLS).cpu()
-        nseq = int(m[:, fk.J_NSEQ].clamp(min=0).sum())
-        return nseq * 8 + tables.numel() * 4 + meta.numel() * 4 + consts.numel() * 4
-    consts, meta, words, tables, lits = a
-    m = meta.reshape(-1, dk.META_COLS).cpu()
-    seq = m[:, dk.M_KIND] == dk.KIND_SEQ
-    words_used = int(((m[seq, dk.M_STARTBIT] + 7) // 8).sum())
-    nlit = int(m[m[:, dk.M_KIND] != dk.KIND_RLE][:, dk.M_LITN].clamp(min=0).sum())
-    per_lit = 1 if name == "ring_decode" else 4
-    return words_used + nlit * per_lit + tables.numel() * 4 + meta.numel() * 4 + consts.numel() * 4
-
-
-def written_bytes(name, result, mods):
-    """Output bytes the function must write, each once."""
-    mk, fk, dk, rk, rch = mods
-    if name in ("reach_tables", "reach_mark"):
-        return result.numel() * 4
-    if name == "match":
-        lm, ofv, litw, stat = result
-        nseq = int(stat[:, mk.ST_NSEQ].sum())
-        return nseq * 8 + int(stat[:, mk.ST_LITCNT].sum()) + stat.numel() * 4
-    if name == "fse":
+        mt = meta.reshape(-1, m.fk.JMETA_COLS).cpu()
+        nseq = int(mt[:, m.fk.J_NSEQ].clamp(min=0).sum())
         words, bits = result
-        return int(((bits.to(torch.int64) + 7) // 8).sum()) + bits.numel() * 4
+        return (nseq * 8 + tables.numel() * 4 + meta.numel() * 4 + consts.numel() * 4
+                + int(((bits.to(torch.int64) + 7) // 8).sum()) + bits.numel() * 4)
+    if name == "exec":
+        meta, lls, mls, ofvs, lits = a
+        mt = meta.reshape(-1, m.ek.META_COLS).cpu()
+        seq = mt[:, m.ek.M_KIND] == m.ek.KIND_SEQ
+        nseq = int(mt[seq, m.ek.M_NSEQ].sum())
+        out, mo = result
+        return (meta.numel() * 4 + nseq * 12 + int(mo[:, 2].to(torch.int64).sum()) * 4
+                + int(mo[:, 0].to(torch.int64).sum()) + mo.numel() * 4)
+    if name == "fse_decode":
+        words, starts, nseqs, tidx, tables, logs, consts = a
+        words_used = int(((starts.to(torch.int64).clamp(min=0) + 7) // 8).sum())
+        small = sum(t.numel() * 4 for t in (starts, nseqs, tidx, tables, logs, consts))
+        return words_used + small + sum(t.numel() * 4 for t in result)
+    if name == "byte_histogram":
+        return a[0].numel() + result.numel() * 4
+    if name == "table_lookup":
+        return a[0].numel() + a[1].numel() * 4 + result.numel() * 4
+    consts, meta, words, tables, lits = a
+    mt = meta.reshape(-1, m.dk.META_COLS).cpu()
+    seq = mt[:, m.dk.M_KIND] == m.dk.KIND_SEQ
+    words_used = int(((mt[seq, m.dk.M_STARTBIT] + 7) // 8).sum())
+    nlit = int(mt[mt[:, m.dk.M_KIND] != m.dk.KIND_RLE][:, m.dk.M_LITN].clamp(min=0).sum())
+    per_lit = 1 if name == "ring_decode" else 4
     out, mo = result
-    return int(mo[:, 0].to(torch.int64).sum()) + mo.numel() * 4
+    return (words_used + nlit * per_lit + tables.numel() * 4 + meta.numel() * 4
+            + consts.numel() * 4 + int(mo[:, 0].to(torch.int64).sum()) + mo.numel() * 4)
 
 
-def time_kernel(name, a, k, mods, reps=5):
-    mk, fk, dk, rk, rch = mods
-    fn = {"match": mk.match, "reach_tables": rch.chunk_pointer_tables,
-          "reach_mark": rch.chunk_mark, "fse": fk.fse_encode,
-          "ring_decode": rk.ring_decode, "wide_decode": dk.wide_decode}[name]
-    result = fn(*a, **k)  # warm
+def cuda_ms(fn, reps):
+    """Mean CUDA-event milliseconds of ``fn()`` over ``reps`` launches,
+    after one warm call; returns (ms, the warm call's result)."""
+    result = fn()
     torch.cuda.synchronize()
     ev0, ev1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     ev0.record()
     for _ in range(reps):
-        fn(*a, **k)
+        fn()
     ev1.record()
     torch.cuda.synchronize()
     return ev0.elapsed_time(ev1) / reps, result
+
+
+def time_kernel(name, a, k, m, reps=5):
+    fn = {"match": m.mk.match, "reach_tables": m.rch.chunk_pointer_tables,
+          "reach_mark": m.rch.chunk_mark, "fse": m.fk.fse_encode,
+          "ring_decode": m.rk.ring_decode, "wide_decode": m.dk.wide_decode,
+          "exec": m.ek.serial_exec, "fse_decode": m.ent.fse_decode_sequences,
+          "byte_histogram": m.bk.byte_histogram, "table_lookup": m.bk.table_lookup}[name]
+    return cuda_ms(lambda: fn(*a, **k), reps)
 
 
 def med_spread(n, samples):
@@ -347,6 +431,170 @@ def patch_pair(data: bytes, seed: int = 5):
     return old, bytes(new)
 
 
+class exec_route:
+    """``with exec_route("serial"):`` decodes on that route
+    (ZEEKSTD_TPU_EXEC), restoring the default afterwards."""
+
+    def __init__(self, mode):
+        self.mode = mode
+
+    def __enter__(self):
+        os.environ["ZEEKSTD_TPU_EXEC"] = self.mode
+        return self
+
+    def __exit__(self, *exc):
+        os.environ.pop("ZEEKSTD_TPU_EXEC", None)
+        return False
+
+
+def synthetic_exec_rows(ek, dev):
+    """Exec records built by hand, one frame each: every repeat form
+    (explicit, rep1-3, the ll == 0 shift, rep1 - 1); overlapping matches of
+    period 1 and 3 with trailing literals; a match across a 128-byte row,
+    a literal record, an RLE record and 20 seeded sequences sliced at SBd;
+    repeat history carried across blocks; a bad offset. Returns the
+    wrapper's arguments on ``dev``."""
+    SBd, LITB, OUTB = 8, 2048, 4096
+    rng = np.random.default_rng(7)
+    rows, frames, pools = [], [], []
+
+    def seq_block(seqs, budget):
+        first = len(rows)
+        for i in range(0, max(len(seqs), 1), SBd):
+            chunk = list(seqs[i : i + SBd])
+            rows.append(chunk + [(0, 0, 0)] * (SBd - len(chunk)))
+        return ("seq", first, len(seqs), budget)
+
+    reps = [(10, 4, 7), (5, 3, 1), (5, 3, 2), (0, 3, 1), (0, 3, 3), (5, 3, 3), (5, 3, 8)]
+    frames.append([seq_block(reps, 30)])
+    pools.append(b"0123456789" * 4)
+    frames.append([seq_block([(1, 500, 4), (3, 400, 6)], 8)])
+    pools.append(b"xabcRest")
+    seqs, pos = [], 131 + 130 + 50 + 300
+    for _ in range(20):
+        ll = int(rng.integers(1, 20))
+        pos += ll
+        ml = int(rng.integers(3, 12))
+        seqs.append((ll, ml, int(rng.integers(1, pos + 1)) + 3))
+        pos += ml
+    budget = sum(q[0] for q in seqs) + 10
+    frames.append([seq_block([(131, 130, 133)], 131), ("lit", 50), ("rle", 300, 0x5A),
+                   seq_block(seqs, budget)])
+    pools.append(bytes(range(131)) + rng.integers(0, 256, 50 + budget, dtype=np.uint8).tobytes())
+    frames.append([seq_block([(10, 6, 10)], 10), seq_block([(0, 4, 1), (5, 4, 2)], 5)])
+    pools.append(b"abcdefghij" + b"KLMNO")
+    frames.append([seq_block([(3, 4, 103)], 3)])
+    pools.append(b"abc")
+    meta, _n = ek.build_records(frames, SBd)
+    arr = np.asarray(rows, np.int32)  # (NROWS, SBd, 3)
+    lrows = -(-max(len(p) for p in pools) // 128) + LITB // 128 + 1
+    lits = np.zeros((len(pools), lrows * 128), np.int32)
+    for f, p in enumerate(pools):
+        lits[f, : len(p)] = np.frombuffer(p, np.uint8)
+    args = [torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+            for x in (meta, arr[..., 0], arr[..., 1], arr[..., 2],
+                      lits.reshape(len(pools), lrows, 128))]
+    return args, dict(OUTB=OUTB, LITB=LITB, SBd=SBd)
+
+
+def check_routes_small(zt, small, blob_s, st_s, dev, m, small_err):
+    """Phase 2c (routes): the 256 KiB input's level-1 archive (96 KiB
+    frames) and a level-3 archive (32 KiB frames) on the serial and the
+    doubling route; every exec, FSE-decode and reachability call of those
+    decodes against its plain version; the synthetic exec rows."""
+    blob_3, st_3 = zt.compress_archive(small, frame_size=32 << 10, level=3, checksum=True,
+                                       device=dev)
+    with Recorder() as rec:
+        for mode in ("serial", "doubling"):
+            with exec_route(mode):
+                for blob_x, st_x in ((blob_s, st_s), (blob_3, st_3)):
+                    assert zt.decompress_archive(blob_x, st_x, device=dev) == small, mode
+    out = {}
+    for name in ("exec", "fse_decode", "reach_tables", "reach_mark"):
+        calls = [(a, k) for a, k in rec.calls[name] if a[0].is_cuda]
+        if not calls:
+            raise AssertionError(f"{name}: the serial/doubling routes never called it")
+        err = max(compare(name, a, k, m)[0] for a, k in calls)
+        small_err[name] = max(small_err.get(name, 0), err)
+        out[name] = len(calls)
+        log(f"[routes] {name}: equal to its plain version on the 256 KiB serial and doubling "
+            f"decodes ({len(calls)} call(s), max abs err {err})")
+    args, kw = synthetic_exec_rows(m.ek, dev)
+    err, _t = compare("exec", args, kw, m)
+    _out0, mo0 = m.ek.exec_plain(*(t.cpu() for t in args), kw["OUTB"], kw["LITB"], kw["SBd"])
+    assert mo0[:, 1].tolist() == [0, 0, 0, 0, 1], mo0[:, :3]
+    log(f"[routes] exec: equal to its plain version on the synthetic rows "
+        f"(totals {mo0[:, 0].tolist()}, bad flags {mo0[:, 1].tolist()})")
+    return out
+
+
+def check_byte_kernels(ops, data, dev, m, small_err):
+    """Phase 2c (bytes): the byte histogram (32 KiB blocks) and the table
+    lookup (a Huffman bit-count table) over the 10 MiB text, against their
+    plain versions and against one PyTorch call each. Returns the recorder
+    of the two launches, their launch counts and the library calls."""
+    block = 1 << 15
+    d = torch.from_numpy(np.frombuffer(data, np.uint8).copy()).to(dev)
+    table = torch.from_numpy(
+        np.random.default_rng(3).integers(1, 12, 256).astype(np.int32)).to(dev)
+    ops.reset_launches()
+    with Recorder() as rec:
+        hist = m.bk.byte_histogram(d, block=block)
+        look = m.bk.table_lookup(d, table)
+    counts = dict(ops.launches)
+    if counts["byte_histogram"] != 1 or counts["table_lookup"] != 1:
+        raise AssertionError(f"the byte kernels did not launch once each: {counts}")
+    nblk = d.numel() // block
+    bins = torch.arange(d.numel(), device=dev) // block * 256 + d.long()
+    idx = d.long()
+    lib_fns = {
+        "byte_histogram": lambda: torch.bincount(bins, minlength=nblk * 256),
+        "table_lookup": lambda: torch.take(table, idx),
+    }
+    if not torch.equal(hist.reshape(-1).long(), lib_fns["byte_histogram"]()):
+        raise AssertionError("byte_histogram disagrees with torch.bincount")
+    if not torch.equal(look, lib_fns["table_lookup"]()):
+        raise AssertionError("table_lookup disagrees with torch.take")
+    for name in ("byte_histogram", "table_lookup"):
+        (a, k), = rec.calls[name]
+        small_err[name] = compare(name, a, k, m)[0]
+        log(f"[bytes] {name}: equal to its plain version and to the PyTorch call on "
+            f"10 MiB")
+    return rec, counts, lib_fns
+
+
+def time_routes(zt, data, dev, smi):
+    """Phase 4c: 5 warm level-3 decodes per route (checksums off, output
+    left on the card): median and spread in MiB/s, then the fenced phase
+    split of one more run."""
+    n = len(data)
+    staged = zt.StagedInput(data, MIB, device=dev)
+    blob_nc, st_nc = zt.compress_archive(staged, frame_size=MIB, level=3)
+    out = {}
+    for mode in ("serial", "doubling"):
+        with exec_route(mode):
+            zt.decompress_archive(blob_nc, st_nc, return_device=True, device=dev)
+            samples = []
+            for _ in range(5):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                zt.decompress_archive(blob_nc, st_nc, return_device=True, device=dev)
+                torch.cuda.synchronize()
+                samples.append(time.perf_counter() - t0)
+            dec = med_spread(n, samples)
+            zt.set_timing(2)
+            zt.phase_records.clear()
+            zt.decompress_archive(blob_nc, st_nc, return_device=True, device=dev)
+            phases = dict(zt.phase_records)
+            zt.set_timing(0)
+        log(f"[timing] level 3 {mode} route: decode MiB/s median {dec[0]:.3f} "
+            f"[{dec[1]:.3f}-{dec[2]:.3f}] x5  ({smi})")
+        log(f"[timing] level 3 {mode} route phases (fenced, s per 10 MiB): " + ", ".join(
+            f"{k} {v:.6f}" for k, v in sorted(phases.items(), key=lambda kv: -kv[1])))
+        out[mode] = dict(dec_mibs=dec, dec_phases=phases)
+    return out
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", help="directory for chip_smoke.json")
@@ -356,16 +604,10 @@ def main():
         return 2
 
     import zeekstd_tpu_torch as zt
-    from zeekstd_tpu_torch import _build
-    from zeekstd_tpu_torch import ops
+    from zeekstd_tpu_torch import _build, decode_routes, ops
     from zeekstd_tpu_torch.native import loader
-    from zeekstd_tpu_torch.ops import decode_kernel as dk
-    from zeekstd_tpu_torch.ops import fse_kernel as fk
-    from zeekstd_tpu_torch.ops import match_kernel as mk
-    from zeekstd_tpu_torch.ops import reach_kernel as rch
-    from zeekstd_tpu_torch.ops import ring_kernel as rk
 
-    mods = (mk, fk, dk, rk, rch)
+    mods = kernel_modules()
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True,
@@ -398,9 +640,10 @@ def main():
         finally:
             del os.environ["ZEEKSTD_TPU_RING"]
     small_err = {}
-    for name, calls in rec.calls.items():
-        if name in ("reach_tables", "reach_mark"):
-            continue  # level 1 takes the match kernel; phase 2b drives these
+    # Level 1 takes the match kernel; phase 2b drives the reachability
+    # kernels, phase 2c the serial and doubling routes' kernels.
+    for name in ("match", "fse", "ring_decode", "wide_decode"):
+        calls = rec.calls[name]
         if not calls:
             raise AssertionError(f"{name}: the 256 KiB run never called it")
         err = 0
@@ -433,9 +676,13 @@ def main():
         log(f"[kernels] {name}: equal to its plain version on the 256 KiB input at levels "
             f"3 and 19 ({len(calls)} call(s), max abs err {err}); archives equal the CPU port's")
 
-    # --- 3. main path, full size -----------------------------------------
+    # --- 2c. the serial and doubling routes against the plain versions ---
     data = build_corpus(10 << 20)
     n = len(data)
+    results["routes_small"] = check_routes_small(zt, small, blob_s, st_s, dev, mods, small_err)
+    rec_bytes, counts_bytes, lib_fns = check_byte_kernels(ops, data, dev, mods, small_err)
+
+    # --- 3. main path, full size -----------------------------------------
     ops.reset_launches()
     with Recorder() as main_rec:
         t0 = time.perf_counter()
@@ -500,8 +747,9 @@ def main():
         mid = (st3b.frame_start_comp(4) + st3b.frame_end_comp(4)) // 2
         bad = bytearray(archive3)
         bad[mid] ^= 1 << 3
+        flipped3 = bytes(bad)
         try:
-            got = zt.decompress_archive(bytes(bad), st3b, device=dev)
+            got = zt.decompress_archive(flipped3, st3b, device=dev)
             corrupt3 = "intact" if got == data else "WRONG"
         except zt.ZeekstdError as e:
             corrupt3 = f"error ({type(e).__name__}: {e})"
@@ -531,6 +779,60 @@ def main():
     # --- 4b. level-3 timing ------------------------------------------------
     results["level3"] = time_path(zt, data, 3, dev, smi)
 
+    # --- 3c. the serial and doubling routes, full size ---------------------
+    fallbacks0 = decode_routes.serial_fallback_count()
+    routes, route_calls = {}, {}
+    for mode, kernels in (("serial", ("exec", "fse_decode", "reach_tables", "reach_mark")),
+                          ("doubling", ("fse_decode", "reach_tables", "reach_mark"))):
+        with exec_route(mode):
+            ops.reset_launches()
+            with Recorder() as rec_r:
+                t0 = time.perf_counter()
+                assert zt.decompress_archive(archive3, st3b, device=dev) == data, mode
+                t_first = time.perf_counter() - t0
+            counts_r = dict(ops.launches)
+        log(f"[routes] 10 MiB level 3 on the {mode} route: exact, first decode "
+            f"{t_first:.3f}s; launches: {counts_r}")
+        for name in kernels:
+            if counts_r[name] <= 0:
+                raise AssertionError(f"kernel {name} was not launched on the {mode} route")
+        others = [k for k, v in counts_r.items() if v and k not in kernels]
+        if others:
+            raise AssertionError(f"the {mode} route launched {others}")
+        calls = {k: [(a, kw) for a, kw in rec_r.calls[k] if a[0].is_cuda] for k in kernels}
+        checked = {}
+        for name in kernels:
+            checked[name] = compare(name, *calls[name][0], mods)
+            err = max([checked[name][0]]
+                      + [compare(name, a, kw, mods)[0] for a, kw in calls[name][1:]])
+            small_err[name] = max(small_err.get(name, 0), err)
+            log(f"[routes] {name}: equal to its plain version on the {mode} route's 10 MiB "
+                f"decode ({len(calls[name])} call(s), plain {checked[name][1]:.3f}s)")
+        routes[mode] = dict(first_decode_s=t_first, launches=counts_r)
+        route_calls[mode] = (calls, checked)
+    if decode_routes.serial_fallback_count() != fallbacks0:
+        raise AssertionError("the serial route fell back to the doubling route")
+    for mode in ("serial", "doubling"):
+        with exec_route(mode):
+            try:
+                got = zt.decompress_archive(flipped3, st3b, device=dev)
+                corrupt_r = "intact" if got == data else "WRONG"
+            except zt.ZeekstdError as e:
+                corrupt_r = f"error ({type(e).__name__}: {e})"
+        assert corrupt_r != "WRONG", f"{mode}: a corrupted archive decoded to wrong bytes"
+        routes[mode]["corrupt"] = corrupt_r
+        log(f"[routes] flipped bit on the {mode} route -> {corrupt_r}")
+    with exec_route("doubling"):
+        for i in (3, 4, 5):
+            got, end = zt.decompress_frame(archive3, st3b.frame_start_comp(i), device=dev)
+            assert got == data[st3b.frame_start_decomp(i) : st3b.frame_end_decomp(i)], i
+            assert end == st3b.frame_end_comp(i)
+    log("[routes] frames 3-5 through decompress_frame on the doubling route exact")
+    results.update(routes=routes)
+
+    # --- 4c. route timing -------------------------------------------------
+    results["route_timing"] = time_routes(zt, data, dev, smi)
+
     sources = {
         "match": ("zeekstd_tpu_torch/csrc/match_kernel.cu", "zeekstd_tpu/ops/match_kernel.py:512"),
         "reach_tables": ("zeekstd_tpu_torch/csrc/reach_kernel.cu",
@@ -540,36 +842,60 @@ def main():
         "fse": ("zeekstd_tpu_torch/csrc/fse_kernel.cu", "zeekstd_tpu/ops/fse_kernel.py:280"),
         "ring_decode": ("zeekstd_tpu_torch/csrc/fused_decode.cu", "zeekstd_tpu/ops/ring_kernel.py:541"),
         "wide_decode": ("zeekstd_tpu_torch/csrc/fused_decode.cu", "zeekstd_tpu/ops/decode_kernel.py:388"),
+        "exec": ("zeekstd_tpu_torch/csrc/exec_kernel.cu", "zeekstd_tpu/ops/exec_kernel.py:372"),
+        "fse_decode": ("zeekstd_tpu_torch/csrc/fse_decode.cu",
+                       "zeekstd_tpu/ops/entropy.py:199 (an XLA scan, not a pallas_call)"),
+        "byte_histogram": ("zeekstd_tpu_torch/csrc/byte_kernels.cu",
+                           "zeekstd_tpu/ops/pallas_kernels.py:68"),
+        "table_lookup": ("zeekstd_tpu_torch/csrc/byte_kernels.cu",
+                         "zeekstd_tpu/ops/pallas_kernels.py:111"),
     }
     # Each kernel at the shapes of the path that needs it: the level-1 path
     # for the match, FSE and ring kernels, the level-3 path for the
-    # reachability kernels and the wide decoder (its 1 MiB windows); the
-    # FSE kernel is also timed at the level-3 shapes. Launches add up both
-    # main-path phases.
+    # reachability kernels and the wide decoder (its 1 MiB windows), the
+    # serial route's 10 MiB decode for the exec and FSE-decode kernels
+    # (their plain comparison is phase 3c's); the FSE kernel is also timed
+    # at the level-3 shapes; the byte kernels, on no archive path (as in
+    # the reference), on the 10 MiB text of phase 2c. Launches add up the
+    # counted runs: phases 3 and 3b, each route of 3c, and the byte
+    # kernels' own run.
+    runs = [counts, counts3, routes["serial"]["launches"], routes["doubling"]["launches"],
+            counts_bytes]
+    serial_calls, serial_checked = route_calls["serial"]
     table, extra = [], {}
-    for name, path, rec_m in (("match", 1, main_rec), ("reach_tables", 3, main_rec3),
-                              ("reach_mark", 3, main_rec3), ("fse", 1, main_rec),
-                              ("fse", 3, main_rec3), ("ring_decode", 1, main_rec),
-                              ("wide_decode", 3, main_rec3)):
-        a, k = rec_m.calls[name][0]
-        ms, result = time_kernel(name, a, k, mods)
-        err, t_plain = compare(name, a, k, mods)
-        moved = read_bytes(name, a, mods) + written_bytes(name, result, mods)
+    for name, path, rec_m in (("match", 1, main_rec.calls), ("reach_tables", 3, main_rec3.calls),
+                              ("reach_mark", 3, main_rec3.calls), ("fse", 1, main_rec.calls),
+                              ("fse", 3, main_rec3.calls), ("ring_decode", 1, main_rec.calls),
+                              ("wide_decode", 3, main_rec3.calls),
+                              ("exec", "3c", serial_calls), ("fse_decode", "3c", serial_calls),
+                              ("byte_histogram", "2c", rec_bytes.calls),
+                              ("table_lookup", "2c", rec_bytes.calls)):
+        a, k = rec_m[name][0]
+        small_kernel = name in ("byte_histogram", "table_lookup")
+        ms, result = time_kernel(name, a, k, mods, reps=20 if small_kernel else 5)
+        if path == "3c":
+            err, t_plain = serial_checked[name]
+        else:
+            err, t_plain = compare(name, a, k, mods)
+        moved = moved_bytes(name, a, result, mods)
         bound_ms = moved / HBM_BYTES_PER_S * 1e3
+        lib_ms = cuda_ms(lib_fns[name], 20)[0] if name in lib_fns else None
+        launched = sum(run[name] for run in runs)
         row = {
             "name": name, "route": "cuda", "source": sources[name][0],
-            "replaces": sources[name][1], "launches": counts[name] + counts3[name],
+            "replaces": sources[name][1], "launches": launched,
             "max_abs_err": max(err, small_err[name]), "ms": ms,
             "plain_ms": t_plain * 1e3, "bound_ms": bound_ms, "bound_by": "bytes",
-            "library_ms": None,
+            "library_ms": lib_ms,
         }
         if name == "fse" and path == 3:
             extra["fse_level3"] = row
         else:
             table.append(row)
-        log(f"[timing] {name} (level-{path} path): {ms:.4f} ms/launch, bound "
-            f"{bound_ms:.6f} ms ({moved} bytes), plain {t_plain * 1e3:.1f} ms, "
-            f"launches {counts[name]} + {counts3[name]}")
+        lib = f", library {lib_ms:.4f} ms" if lib_ms is not None else ""
+        log(f"[timing] {name} (phase {path} shapes): {ms:.4f} ms/launch, bound "
+            f"{bound_ms:.6f} ms ({moved} bytes), plain {t_plain * 1e3:.1f} ms{lib}, "
+            f"launches {launched} ({' + '.join(str(run[name]) for run in runs)})")
     results["kernels"] = table
     results.update(extra)
 

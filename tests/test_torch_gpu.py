@@ -13,7 +13,10 @@ import torch
 
 import zeekstd_tpu_torch as zt
 from zeekstd_tpu_torch import ops
+from zeekstd_tpu_torch.ops import byte_kernels as bk
 from zeekstd_tpu_torch.ops import decode_kernel as dk
+from zeekstd_tpu_torch.ops import entropy
+from zeekstd_tpu_torch.ops import exec_kernel as ek
 from zeekstd_tpu_torch.ops import fse_kernel as fk
 from zeekstd_tpu_torch.ops import match_kernel as mk
 from zeekstd_tpu_torch.ops import reach_kernel as rch
@@ -151,3 +154,107 @@ def test_card_level3_and_patch_archives_equal_cpu_archives(card):
         assert got == data[st.frame_start_decomp(i) : st.frame_end_decomp(i)]
     for k in ("reach_tables", "reach_mark", "fse"):
         assert ops.launches[k] > before[k]
+
+
+@pytest.fixture(scope="module")
+def route_calls(card):
+    """Serial- and doubling-route decodes of level-1 and level-3 archives
+    on the card (each equal to the CPU port's bytes), with the inputs the
+    routes hand the exec, FSE-decode and reachability wrappers."""
+    sites = {"exec": (ek, "serial_exec"), "fse_decode": (entropy, "fse_decode_sequences"),
+             "reach_tables": (rch, "chunk_pointer_tables"), "reach_mark": (rch, "chunk_mark")}
+    rec = {k: [] for k in sites}
+    orig = {k: getattr(m, a) for k, (m, a) in sites.items()}
+    for k, (m, a) in sites.items():
+        def wrap(*args, _k=k, **kw):
+            rec[_k].append((args, kw))
+            return orig[_k](*args, **kw)
+        setattr(m, a, wrap)
+    data = _data(96 << 10)
+    before = dict(ops.launches)
+    try:
+        for level, frame in ((1, 32 << 10), (3, 32 << 10)):
+            blob, st = zt.compress_archive(data, frame_size=frame, level=level, checksum=True,
+                                           device=card)
+            for mode in ("serial", "doubling"):
+                os.environ["ZEEKSTD_TPU_EXEC"] = mode
+                assert zt.decompress_archive(blob, st, device=card) == data
+                assert zt.decompress_archive(blob, st, device="cpu") == data
+                got, _end = zt.decompress_frame(blob, st.frame_start_comp(1), device=card)
+                assert got == data[st.frame_start_decomp(1) : st.frame_end_decomp(1)]
+    finally:
+        os.environ.pop("ZEEKSTD_TPU_EXEC", None)
+        for k, (m, a) in sites.items():
+            setattr(m, a, orig[k])
+    for k in sites:
+        assert ops.launches[k] > before[k], k
+    return {k: [(a, kw) for a, kw in v if a[0].is_cuda] for k, v in rec.items()}
+
+
+def test_exec_kernel_equals_plain(route_calls):
+    assert route_calls["exec"]
+    for a, k in route_calls["exec"]:
+        out, mo = ek.serial_exec(*a, **k)
+        out0, mo0 = ek.exec_plain(*(t.cpu() for t in a), k["OUTB"], k["LITB"], k["SBd"])
+        assert torch.equal(mo[:, :3].cpu(), mo0[:, :3])
+        F = mo.shape[0]
+        ob, ob0 = out.reshape(F, -1).cpu(), out0.reshape(F, -1)
+        for f, tot in enumerate(mo0[:, 0].tolist()):
+            assert torch.equal(ob[f, :tot], ob0[f, :tot])
+
+
+def test_fse_decode_kernel_equals_plain(route_calls):
+    assert route_calls["fse_decode"]
+    for a, k in route_calls["fse_decode"]:
+        got = entropy.fse_decode_sequences(*a, **k)
+        want = entropy.fse_decode_plain(*(t.cpu() for t in a), k["seq_bound"])
+        for g, w in zip(got, want):
+            assert torch.equal(g.cpu(), w)
+
+
+def test_fse_decode_kernel_equals_plain_on_hostile_tables(card):
+    rng = np.random.default_rng(17)
+    B, WB, T = 70, 16, 5
+    words = rng.integers(0, 1 << 32, (B, WB), dtype=np.uint64).astype(np.uint32)
+    sym, nb = rng.integers(0, 256, (T, 512)), rng.integers(0, 256, (T, 512))
+    base = rng.integers(0, 1 << 15, (T, 512))
+    st = zt.from_reference_arrays(
+        card, words=words, starts=rng.integers(-40, WB * 32 + 40, B).astype(np.int32),
+        nseqs=rng.integers(-3, 40, B).astype(np.int32),
+        tidx=rng.integers(0, T, (B, 3)).astype(np.int32),
+        tables=(sym | (nb << 8) | (base << 16)).astype(np.int32),
+        logs=rng.integers(0, 12, T).astype(np.int32), consts=dk.make_consts())
+    args = [st[n] for n in ("words", "starts", "nseqs", "tidx", "tables", "logs", "consts")]
+    got = entropy.fse_decode_sequences(*args, seq_bound=32)
+    want = entropy.fse_decode_plain(*(t.cpu() for t in args), 32)
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w)
+
+
+def test_route_reach_kernels_equal_plain(route_calls):
+    assert route_calls["reach_tables"] and route_calls["reach_mark"]
+    for (a, _k) in route_calls["reach_tables"]:
+        assert torch.equal(rch.chunk_pointer_tables(*a).cpu(), rch.tables_plain(a[0].cpu()))
+    for (a, _k) in route_calls["reach_mark"]:
+        assert torch.equal(rch.chunk_mark(*a).cpu(),
+                           rch.mark_plain(*(t.cpu() for t in a)))
+
+
+@pytest.mark.parametrize("n,block", [(1 << 20, 1 << 15), (3 << 13, 1 << 13), (1 << 12, 128)])
+def test_byte_kernels_equal_plain(card, n, block):
+    rng = np.random.default_rng(n)
+    data = rng.integers(0, 256, n).astype(np.uint8)
+    data[: n // 4] = 7  # a long run: one hot bin
+    d = torch.from_numpy(data)
+    table = torch.from_numpy(rng.integers(-(1 << 31), 1 << 31, 256).astype(np.int32))
+    hist = bk.byte_histogram(d.to(card), block=block)
+    assert torch.equal(hist.cpu(), bk.histogram_plain(d, block))
+    look = bk.table_lookup(d.to(card), table.to(card))
+    assert torch.equal(look.cpu(), bk.lookup_plain(d, table))
+    # An unaligned view takes the byte-wise paths.
+    off = d.to(card)[1 : 1 + n - 1024]
+    m = (n - 1024) // block * block
+    assert torch.equal(bk.byte_histogram(off[:m], block=block).cpu(),
+                       bk.histogram_plain(d[1 : 1 + m], block))
+    assert torch.equal(bk.table_lookup(off[: n - 1024], table.to(card)).cpu(),
+                       bk.lookup_plain(d[1 : 1 + n - 1024], table))

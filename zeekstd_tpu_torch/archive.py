@@ -13,7 +13,9 @@ Encode (``compress_archive``):
   host    byte-exact layout of every frame (run segments)
   device  assembly of the compressed frame rows
 
-Decode (``decompress_archive``, ``decode_frames``, ``decompress_frame``):
+Decode (``decompress_archive``, ``decode_frames``, ``decompress_frame``),
+on the route ``ZEEKSTD_TPU_EXEC`` selects (``exec_mode``):
+- unset or ``fused`` (the default; ``decode_frames`` always):
   host    plan every frame, decode the Huffman literal streams (native)
   device  one fused kernel decodes every FSE stream and executes every
           sequence: the ring route when every declared window (and
@@ -21,6 +23,8 @@ Decode (``decompress_archive``, ``decode_frames``, ``decompress_frame``):
           (``ZEEKSTD_TPU_RING=0`` forces the wide route)
   host    post-kernel checks: bad flag, literal count, content size,
           seek-table size, XXH64
+- ``serial`` or ``doubling``: device Huffman and FSE decode, then the
+  serial executor kernel or pointer doubling (``decode_routes.py``).
 """
 
 from __future__ import annotations
@@ -30,15 +34,17 @@ import os
 import numpy as np
 import torch
 
+from . import decode_routes
+from . import plan as plan_mod
 from .codec import frame as frame_mod
 from .codec import huffman as huf
 from .codec import literals as lit_mod
 from .codec import sequences as seq_mod
 from .codec.compress import compress_frame
 from .codec.seq_encode import _choose_table, write_num_sequences
-from .constants import SEEKABLE_MAX_FRAME_SIZE, ZSTD_BLOCK_SIZE_MAX
-from .device import phase_timer, resolve_device
-from .errors import checksum_wrong, corruption_detected
+from .constants import ZSTD_BLOCK_SIZE_MAX
+from .device import from_reference_arrays, phase_timer, resolve_device
+from .errors import corruption_detected
 from .native import loader
 from .ops import assemble, entropy
 from .ops import decode_kernel as dk
@@ -46,7 +52,8 @@ from .ops import fse_kernel as fk
 from .ops import match_kernel as mk
 from .ops import match_tpu as mt
 from .ops import ring_kernel as rk
-from .plan import _plan_frame, _words_from_bytes
+from .plan import _plan_frame
+from .plan import checksum as content_checksum
 from .seek_table import SeekTable
 
 # The archive encoder cuts 32 KiB blocks: each block is an independent
@@ -59,28 +66,10 @@ WINDOW_CAP = 1 << 19       # match-kernel offsets stay inside 512 KiB
 LITB = 128 << 10           # a block's literal budget (the format's block cap)
 
 
-def from_reference_arrays(device=None, **arrays) -> dict[str, torch.Tensor]:
-    """Stage numpy arrays of the reference's layouts (meta records, word
-    tables, table pools, stat rows) as the port's tensors on ``device``.
-    uint32 arrays keep their bits as int32."""
-    dev = resolve_device(device)
-    out = {}
-    for name, a in arrays.items():
-        a = np.ascontiguousarray(a)
-        if a.dtype == np.uint32:
-            a = a.view(np.int32)
-        out[name] = torch.from_numpy(a.copy()).to(dev)
-    return out
-
-
 def empty_frame(checksum: bool) -> bytes:
     """The frame of an empty input: header, one empty last raw block, and
     XXH64("") when checksummed."""
     return compress_frame(b"", level=1, checksum=checksum)
-
-
-def _checksum(data) -> int:
-    return loader.xxh64(data) & 0xFFFF_FFFF
 
 
 # --------------------------------------------------------------- encode ---
@@ -573,7 +562,7 @@ def _layout_archive(
             _plan_block(plan, d, f, b, last, fdata, fse_bits, huf_bits,
                         emit_state, prefix_len)
         if checksum:
-            plan.add_static(f, _checksum(fdata).to_bytes(4, "little"))
+            plan.add_static(f, content_checksum(fdata).to_bytes(4, "little"))
     return plan, d_sizes
 
 
@@ -894,52 +883,11 @@ def compress_archive(
 # --------------------------------------------------------------- decode ---
 
 
-def _plan_archive(blob, seek_table):
-    """Plan every frame of the archive: [(hdr, plan, checksum_pos)]."""
-    plans = []
-    if seek_table is not None:
-        for i in range(seek_table.num_frames):
-            start = seek_table.frame_start_comp(i)
-            if seek_table.frame_size_decomp(i) == 0 and seek_table.frame_end_comp(i) == start:
-                continue
-            hdr_i, plan_i, fpos_i = _plan_frame(blob, start)
-            # The frame must consume exactly its seek-table extent: a
-            # corrupted header (e.g. a flipped checksum-flag bit) otherwise
-            # shifts the trailer and decodes silently wrong.
-            consumed = fpos_i + (4 if hdr_i.has_checksum else 0)
-            if consumed != seek_table.frame_end_comp(i):
-                raise corruption_detected(
-                    f"frame {i} consumed {consumed - start} bytes; seek "
-                    f"table records {seek_table.frame_size_comp(i)}"
-                )
-            plans.append((hdr_i, plan_i, fpos_i))
-    else:
-        pos = 0
-        while pos < len(blob):
-            magic = int.from_bytes(blob[pos : pos + 4], "little")
-            if (magic & 0xFFFFFFF0) == 0x184D2A50:  # skippable (incl. seek table)
-                size = int.from_bytes(blob[pos + 4 : pos + 8], "little")
-                pos += 8 + size
-                continue
-            hdr, plan, fpos = _plan_frame(blob, pos)
-            plans.append((hdr, plan, fpos))
-            pos = fpos + (4 if hdr.has_checksum else 0)
-    return plans
-
-
-def _collect(plans):
-    """Huffman streams and sequence-bearing blocks in plan order."""
-    stream_list, seq_blocks, frame_rows = [], [], []
-    for _, plan, _ in plans:
-        rows = []
-        for kind, *args in plan:
-            if kind == "cmp" and "streams" in args[0]:
-                stream_list.extend(args[0]["streams"])
-            if kind == "cmp" and args[0].get("nseq", 0) > 0:
-                rows.append(len(seq_blocks))
-                seq_blocks.append(args[0])
-        frame_rows.append(rows)
-    return stream_list, seq_blocks, frame_rows
+def exec_mode() -> str:
+    """The decode route ``ZEEKSTD_TPU_EXEC`` selects: "serial", "doubling",
+    or "fused" (unset, "fused" or any other value)."""
+    mode = os.environ.get("ZEEKSTD_TPU_EXEC", "")
+    return mode if mode in ("serial", "doubling") else "fused"
 
 
 def decompress_archive(
@@ -949,7 +897,7 @@ def decompress_archive(
     return_device: bool = False,
     device=None,
 ):
-    """Decode a whole seekable archive with the fused kernel route.
+    """Decode a whole seekable archive on the route ``exec_mode`` selects.
 
     With a ``seek_table`` the frame boundaries come from it; without one
     the frames are walked in order, skipping skippable frames. With
@@ -957,15 +905,20 @@ def decompress_archive(
     (uint8[F, out_bound], sizes) is returned."""
     dev = resolve_device(device)
     with phase_timer("dec.plan"):
-        plans = _plan_archive(blob, seek_table)
+        plans = plan_mod.plan_archive(blob, seek_table)
     if not plans:
         return b""
-    stream_list, seq_blocks, frame_rows = _collect(plans)
+    lay = plan_mod.collect(plans)
+    mode = exec_mode()
+    if mode != "fused":
+        return decode_routes.classic_decompress_archive(
+            blob, plans, lay, seek_table, verify_checksum, return_device, dev,
+            serial=mode == "serial",
+        )
     with phase_timer("dec.huf_host"):
-        dec_list = _huf_batch_host(stream_list)
+        dec_list = _huf_batch_host(lay.streams)
     return _fused_exec_dispatch(
-        blob, plans, frame_rows, seq_blocks, dec_list, seek_table,
-        verify_checksum, return_device, dev,
+        blob, plans, lay, dec_list, seek_table, verify_checksum, return_device, dev,
     )
 
 
@@ -974,30 +927,36 @@ def decode_frames(blob, spans, verify_checksum: bool = True, device=None):
     [(start, end), ...] of ``blob`` in one kernel launch; returns a list
     of bytes, one per span."""
     dev = resolve_device(device)
-    plans = []
-    for s, _e in spans:
-        plans.append(_plan_frame(blob, s))
-    stream_list, seq_blocks, frame_rows = _collect(plans)
-    dec_list = _huf_batch_host(stream_list)
+    plans = [_plan_frame(blob, s) for s, _e in spans]
+    lay = plan_mod.collect(plans)
+    dec_list = _huf_batch_host(lay.streams)
     return _fused_exec_dispatch(
-        blob, plans, frame_rows, seq_blocks, dec_list, None,
-        verify_checksum, False, dev, return_parts=True,
+        blob, plans, lay, dec_list, None, verify_checksum, False, dev, return_parts=True,
     )
 
 
 def decompress_frame(frame: bytes, pos: int = 0, verify_checksum: bool = True,
                      prefix: bytes = b"", device=None):
-    """Decode the one zstd frame at ``pos`` of ``frame`` on the fused
-    route; returns (bytes, end_pos). ``prefix`` is zstd's ref_prefix:
-    match offsets may reach before the frame into it (patch mode)."""
+    """Decode the one zstd frame at ``pos`` of ``frame``; returns (bytes,
+    end_pos). ``prefix`` is zstd's ref_prefix: match offsets may reach
+    before the frame into it (patch mode). The fused route by default;
+    under ``ZEEKSTD_TPU_EXEC=serial`` or ``doubling`` the classic path
+    (device Huffman and FSE decode, pointer doubling)."""
     dev = resolve_device(device)
     hdr, plan, fpos = _plan_frame(frame, pos)
-    stream_list, seq_blocks, frame_rows = _collect([(hdr, plan, fpos)])
-    dec_list = _huf_batch_host(stream_list)
-    out = _fused_exec_dispatch(
-        frame, [(hdr, plan, fpos)], frame_rows, seq_blocks, dec_list, None,
-        verify_checksum, False, dev, prefixes=[prefix] if prefix else None,
-    )
+    plans = [(hdr, plan, fpos)]
+    lay = plan_mod.collect(plans)
+    if exec_mode() != "fused":
+        # The classic path: the doubling route over this one frame.
+        out = decode_routes.classic_decompress_archive(
+            frame, plans, lay, None, verify_checksum, False, dev,
+            prefixes=[prefix] if prefix else None)
+    else:
+        dec_list = _huf_batch_host(lay.streams)
+        out = _fused_exec_dispatch(
+            frame, plans, lay, dec_list, None, verify_checksum, False, dev,
+            prefixes=[prefix] if prefix else None,
+        )
     return out, fpos + (4 if hdr.has_checksum else 0)
 
 
@@ -1016,48 +975,6 @@ def _huf_batch_host(stream_list):
             dec = np.frombuffer(huf.decode_stream(table, sbytes, olen), np.uint8)
         out.append(dec)
     return out
-
-
-def _fse_stage(seq_blocks):
-    """Host staging of the FSE decode inputs: bitstream words, start bits,
-    deduped packed decode tables, per-block table indices."""
-    word_bound = 1 << max(
-        ((max(len(d["payload"]) for d in seq_blocks) + 3) // 4).bit_length(), 4
-    )
-    B = len(seq_blocks)
-    Bp = 1 << max((B - 1).bit_length(), 2)
-    words = np.zeros((Bp, word_bound), np.uint32)
-    starts = np.zeros(Bp, np.int32)
-    tidx = np.zeros((Bp, 3), np.int32)
-    tables = []
-    tbl_of = {}
-
-    def table_index(t):
-        ti = tbl_of.get(id(t))
-        if ti is None:
-            ti = tbl_of[id(t)] = len(tables)
-            tables.append(t)
-        return ti
-
-    for i, d in enumerate(seq_blocks):
-        w, sb = _words_from_bytes(d["payload"], word_bound)
-        words[i] = w
-        starts[i] = sb
-        ll_t, of_t, ml_t = d["tables"]
-        tidx[i] = [table_index(ll_t), table_index(of_t), table_index(ml_t)]
-    T = len(tables)
-    Tp = 1 << max((T - 1).bit_length(), 1)
-    packed = np.zeros((Tp, 512), np.int32)
-    logs_t = np.zeros(Tp, np.int32)
-    for ti, t in enumerate(tables):
-        size = 1 << t.accuracy_log
-        packed[ti, :size] = (
-            t.symbol.astype(np.int32)
-            | (t.nb_bits.astype(np.int32) << 8)
-            | (t.baseline.astype(np.int32) << 16)
-        )
-        logs_t[ti] = t.accuracy_log
-    return words, starts, tidx, packed, logs_t, word_bound
 
 
 def use_ring_route(plans, max_bound: int, plens=None) -> bool:
@@ -1103,7 +1020,7 @@ def _fused_exec_fn(consts, meta, words, tables, pools, nlit_f, OUTB, dev):
 
 
 def _fused_exec_dispatch(
-    blob, plans, frame_rows, seq_blocks, dec_list, seek_table,
+    blob, plans, lay, dec_list, seek_table,
     verify_checksum, return_device, dev, return_parts=False, prefixes=None,
 ):
     """Decode every planned frame with one fused-kernel launch.
@@ -1119,25 +1036,13 @@ def _fused_exec_dispatch(
     plens = [len(p) if p else 0 for p in prefixes] if prefixes else [0] * F
     if any(plens) and return_device:
         raise ValueError("prefixes cannot combine with return_device")
-    bounds = []
-    for fi, (hdr, plan, _) in enumerate(plans):
-        if seek_table is not None:
-            b = seek_table.frame_size_decomp(fi)
-        elif hdr.content_size is not None:
-            b = hdr.content_size
-        else:
-            b = len(plan) * ZSTD_BLOCK_SIZE_MAX
-        if b > SEEKABLE_MAX_FRAME_SIZE:
-            # A corrupt header must not drive a giant allocation
-            # (seekable frames are capped at 1 GiB).
-            raise corruption_detected("declared frame size exceeds cap")
-        bounds.append(b + plens[fi])
+    bounds = [b + plen for b, plen in zip(plan_mod.frame_bounds(plans, seek_table), plens)]
     max_bound = max(bounds)
     use_ring = use_ring_route(plans, max_bound, plens)
 
     with phase_timer("dec.fused_layout"):
-        if seq_blocks:
-            words, starts, tidx, packed, logs_t, _wb = _fse_stage(seq_blocks)
+        if lay.seq_blocks:
+            words, starts, tidx, packed, logs_t, _wb = plan_mod.fse_stage(lay.seq_blocks)
         else:
             words = np.zeros((2, 16), np.uint32)
             starts = np.zeros(2, np.int32)
@@ -1145,50 +1050,36 @@ def _fused_exec_dispatch(
             packed = np.zeros((1, 512), np.int32)
             logs_t = np.zeros(1, np.int32)
 
+        static_np = np.frombuffer(lay.static, np.uint8)
         frames_blocks = []
         pool_parts = [[] for _ in range(F)]
-        si = 0
-        for fi, (hdr, plan, _) in enumerate(plans):
-            rows = list(frame_rows[fi])
+        for fi, fblocks in enumerate(lay.blocks):
             blocks = []
             if plens[fi]:
                 pool_parts[fi].append(np.frombuffer(prefixes[fi], np.uint8))
                 blocks += [("lit", min(LITB, plens[fi] - o))
                            for o in range(0, plens[fi], LITB)]
-            for kind, *args in plan:
-                if kind == "raw":
-                    data_b = args[0]
-                    pool_parts[fi].append(np.frombuffer(data_b, np.uint8))
-                    blocks.append(("lit", len(data_b)))
-                elif kind == "rle":
-                    blocks.append(("rle", args[1], args[0]))
-                else:
-                    d = args[0]
-                    if "streams" in d:
-                        chunk_len = 0
-                        for _sb, olen, _t in d["streams"]:
-                            pool_parts[fi].append(dec_list[si])
-                            si += 1
-                            chunk_len += olen
-                    else:
-                        lb = d.get("lit_bytes", b"")
-                        pool_parts[fi].append(np.frombuffer(lb, np.uint8))
-                        chunk_len = len(lb)
-                    n = d.get("nseq", 0)
-                    if n == 0:
-                        blocks.append(("lit", chunk_len))
-                    else:
-                        r = rows.pop(0)
-                        logs = (
-                            int(logs_t[tidx[r, 0]])
-                            | int(logs_t[tidx[r, 1]]) << 5
-                            | int(logs_t[tidx[r, 2]]) << 10
-                        )
-                        blocks.append((
-                            "seq", r, n, chunk_len,
-                            int(tidx[r, 0]), int(tidx[r, 1]),
-                            int(tidx[r, 2]), logs, int(starts[r]),
-                        ))
+            for blk in fblocks:
+                if blk[0] == "rle":
+                    blocks.append(blk)
+                    continue
+                for static, src, n in blk[1]:
+                    pool_parts[fi].append(static_np[src : src + n] if static else dec_list[src])
+                chunk_len = plan_mod.seg_len(blk[1])
+                if blk[0] == "lit":
+                    blocks.append(("lit", chunk_len))
+                    continue
+                _seq, _segs, r, n = blk
+                logs = (
+                    int(logs_t[tidx[r, 0]])
+                    | int(logs_t[tidx[r, 1]]) << 5
+                    | int(logs_t[tidx[r, 2]]) << 10
+                )
+                blocks.append((
+                    "seq", r, n, chunk_len,
+                    int(tidx[r, 0]), int(tidx[r, 1]),
+                    int(tidx[r, 2]), logs, int(starts[r]),
+                ))
             frames_blocks.append(blocks)
         meta, _n_rec = dk.build_records(frames_blocks)
 
@@ -1236,9 +1127,7 @@ def _fused_exec_dispatch(
         parts = []
         for fi, (hdr, _p, cpos) in enumerate(plans):
             result = out[fi, plens[fi] : int(totals[fi])].tobytes()
-            if hdr.has_checksum and verify_checksum:
-                stored = int.from_bytes(blob[cpos : cpos + 4], "little")
-                if _checksum(result) != stored:
-                    raise checksum_wrong("content checksum mismatch")
+            if verify_checksum:
+                plan_mod.check_checksum(blob, hdr, cpos, result)
             parts.append(result)
     return parts if return_parts else b"".join(parts)

@@ -31,7 +31,7 @@
 // destination, so the lanes copy in parallel even when o < L; __syncwarp
 // orders each copy after the bytes it reads.
 
-#include "common.cuh"
+#include "copy.cuh"
 
 namespace {
 
@@ -43,7 +43,6 @@ constexpr int KIND_SEQ = 0, KIND_LIT = 1, KIND_RLE = 2, KIND_NOP = 3;
 constexpr int F_FRAME_START = 1, F_FRAME_END = 2;
 constexpr int RING = 1 << 19;
 constexpr int STAGE_WORDS = 16384;  // bitstream words staged per block (64 KiB)
-constexpr int LANES = 32;
 
 struct DecArgs {
   const int* consts;  // (4, 64): LL_BASE, LL_BITS, ML_BASE, ML_BITS
@@ -61,8 +60,8 @@ __device__ __forceinline__ uint32_t low_mask(int n) {
   return (1u << (n < 31 ? n : 31)) - 1u;
 }
 
-// Literal sources: the ring route's packed LE words, or the wide route's
-// one int32 per byte. Reads outside the pool return 0.
+// The ring route's literal source: packed LE words (the wide route's one
+// int32 per byte is WideLits, copy.cuh). Reads outside the pool return 0.
 struct RingLits {
   const uint8_t* p;
   long long n;
@@ -70,29 +69,6 @@ struct RingLits {
     return (i >= 0 && i < n) ? p[i] : 0;
   }
 };
-struct WideLits {
-  const int* p;
-  long long n;
-  __device__ __forceinline__ uint8_t operator()(long long i) const {
-    return (i >= 0 && i < n) ? (uint8_t)p[i] : 0;
-  }
-};
-
-template <typename Lits>
-__device__ __forceinline__ void copy_lits(uint8_t* out, int pos, const Lits& lit,
-                                          int litcur, int n) {
-  for (int k = threadIdx.x; k < n; k += LANES) out[pos + k] = lit((long long)litcur + k);
-}
-
-// out[mpos + k] = out[mpos - off + (k mod off)] for k < n: every source
-// byte precedes mpos, so the lanes never read a byte this copy writes.
-__device__ __forceinline__ void copy_match(uint8_t* out, int mpos, int off, int n) {
-  const int src = mpos - off;
-  for (int k = threadIdx.x; k < n; k += LANES) {
-    const int i = src + (k < off ? k : k % off);
-    out[mpos + k] = i >= 0 ? out[i] : 0;
-  }
-}
 
 template <bool kRing, typename Lits>
 __device__ void decode_frame(const DecArgs& a, int f, uint8_t* out,

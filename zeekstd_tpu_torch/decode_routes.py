@@ -1,0 +1,522 @@
+"""The serial and pointer-doubling decode routes.
+
+Port of the non-fused decode paths of ``zeekstd_tpu/tpu_archive.py``
+(``tpu_decompress_archive`` after its fused branch, ``_huf_batch_dev``,
+``_fse_batch_dev``, ``_serial_*``, ``_dec_exec_fn``) and of the classic
+branch of ``zeekstd_tpu/tpu_codec.tpu_decompress_frame``.
+``ZEEKSTD_TPU_EXEC`` selects them (``archive.exec_mode``); the fused
+route stays the default.
+
+Both routes share two device dispatches:
+  dec.huf_batch   every Huffman literal stream, decoded on the device by
+                  bit reachability (``ops/huffman_spec.py``: torch glue and
+                  the two reachability kernels)
+  dec.fse_batch   every block's FSE sequence stream (the ``fse_decode``
+                  kernel); repeat offsets resolved per block
+Then:
+  serial    dec.serial_layout (record table, literal segments), one
+            ``exec`` kernel launch for all frames (repeat offsets threaded
+            across blocks in the kernel), dec.serial_pull+verify. An
+            archive whose blocks exceed the executor's literal window
+            (SERIAL_LITB) goes to the doubling route, counted by
+            ``serial_fallback_count``.
+  doubling  dec.rep_carry (the host's sequential repeat-offset fix, only
+            for frames that need it), dec.layout (run segments of the
+            per-frame triple and literal maps), dec.exec_dispatch (the
+            maps, then pointer doubling in torch, ``ops/seq_exec.py``),
+            dec.pull+verify. Every copy reads an earlier byte of its
+            frame, so a frame of at most out_bound bytes resolves in
+            ceil(log2(out_bound)) doubling passes; the reference's shallow
+            first pass, its escalation and its host decode of unresolved
+            frames have nothing left to do here.
+``decompress_frame`` on either route is the doubling route over its one
+frame, a prefix riding as a leading literal run.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from . import plan as plan_mod
+from .constants import SEEKABLE_MAX_FRAME_SIZE
+from .device import from_reference_arrays, phase_timer
+from .errors import corruption_detected
+from .ops import decode_kernel as dk
+from .ops import entropy, huffman_spec, seq_exec
+from .ops import exec_kernel as ek
+
+SERIAL_LITB = 128 << 10  # literal window per record (>= any block's budget)
+
+# Observability: archives that fell off the serial executor to the doubling
+# route.
+_serial_fallbacks = {"count": 0}
+
+
+def serial_fallback_count() -> int:
+    return _serial_fallbacks["count"]
+
+
+def _pow2(n: int, floor_log: int) -> int:
+    return 1 << max((n - 1).bit_length(), floor_log)
+
+
+# ------------------------------------------------------ shared dispatches ---
+
+
+def _huf_batch_dev(stream_list, dev):
+    """Device batch Huffman decode: (dec uint8[W, out_bound] on ``dev``,
+    out_bound). No streams yields a (1, 8) dummy."""
+    if not stream_list:
+        return torch.zeros((1, 8), dtype=torch.uint8, device=dev), 8
+    out_bound = 1 << max(max(olen for _, olen, _ in stream_list) - 1, 1).bit_length()
+    word_bound = 1 << max(
+        ((max(len(s) for s, _, _ in stream_list) + 3) // 4).bit_length(), 4
+    )
+    W = len(stream_list)
+    words = np.zeros((W, word_bound), np.uint32)
+    starts = np.zeros(W, np.int32)
+    tbl_idx = np.zeros(W, np.int32)
+    # Dedupe tables by identity: the 4 streams of a block share one.
+    tables, tbl_of = [], {}
+    for i, (sbytes, _olen, table) in enumerate(stream_list):
+        words[i], starts[i] = plan_mod._words_from_bytes(sbytes, word_bound)
+        ti = tbl_of.get(id(table))
+        if ti is None:
+            ti = tbl_of[id(table)] = len(tables)
+            tables.append(table)
+        tbl_idx[i] = ti
+    sym = np.zeros((len(tables), 2048), np.int32)
+    nb = np.zeros((len(tables), 2048), np.int32)
+    mbs = np.ones(len(tables), np.int32)
+    for ti, table in enumerate(tables):
+        size = 1 << table.max_bits
+        sym[ti, :size] = table.symbol
+        nb[ti, :size] = table.nb_bits
+        mbs[ti] = table.max_bits
+    st = from_reference_arrays(dev, words=words, starts=starts, tbl_idx=tbl_idx,
+                               sym=sym, nb=nb, mbs=mbs)
+    ti = st["tbl_idx"].long()
+    out, _n = huffman_spec.decode_stream_bitreach(
+        st["words"], st["starts"], out_bound, st["sym"][ti], st["nb"][ti], st["mbs"][ti])
+    return out, out_bound
+
+
+def _fse_batch_dev(seq_blocks, dev):
+    """Device batch FSE decode: (lls, mls, offs, ofvs) int32[Bp, seq_bound]
+    on ``dev``, hasrep bool[Bp], seq_bound. No blocks yields dummies."""
+    if not seq_blocks:
+        z = torch.zeros((1, 32), dtype=torch.int32, device=dev)
+        return (z, z, torch.ones_like(z), torch.full_like(z, 4),
+                torch.zeros(1, dtype=torch.bool, device=dev), 32)
+    seq_bound = _pow2(max(d["nseq"] for d in seq_blocks), 5)
+    words, starts, tidx, packed, logs_t, _wb = plan_mod.fse_stage(seq_blocks)
+    nseqs = np.zeros(words.shape[0], np.int32)
+    nseqs[: len(seq_blocks)] = [d["nseq"] for d in seq_blocks]
+    st = from_reference_arrays(dev, words=words, starts=starts, nseqs=nseqs, tidx=tidx,
+                               tables=packed, logs=logs_t, consts=dk.make_consts())
+    lls, mls, offs, ofvs, _reps, hasrep = entropy.fse_decode_sequences(
+        st["words"], st["starts"], st["nseqs"], st["tidx"], st["tables"], st["logs"],
+        st["consts"], seq_bound=seq_bound)
+    return lls, mls, offs, ofvs, hasrep, seq_bound
+
+
+def _build_map(dest, base, nval, size: int, fill: int):
+    """Dense per-frame index maps from run segments: position j maps to
+    base[seg] + (j - dest[seg]), seg the rightmost segment with
+    dest[seg] <= j (scatter-add + cumsum), or to ``fill`` past nval."""
+    counts = seq_exec._scatter_count(dest, size)
+    seg = (torch.cumsum(counts, dim=-1) - 1).clamp(0, dest.shape[1] - 1)
+    j = torch.arange(size, device=dest.device)[None, :]
+    m = torch.gather(base, 1, seg) + (j - torch.gather(dest, 1, seg))
+    return torch.where(j < nval[:, None], m, fill)
+
+
+def _static_pool(static: bytes) -> np.ndarray:
+    sp = _pow2(len(static), 7) if static else 1 << 7
+    static_np = np.zeros(sp, np.uint8)
+    static_np[: len(static)] = np.frombuffer(static, np.uint8)
+    return static_np
+
+
+def _lit_segments(frame_segs, sp: int, huf_out_bound: int, size: int):
+    """Per-frame literal run segments (dest, base) into [static pool of sp
+    bytes | decoded Huffman rows of huf_out_bound bytes], padded with
+    ``size`` (dropped) destinations."""
+    F = len(frame_segs)
+    SEGL = _pow2(max((len(s) for s in frame_segs), default=1), 2)
+    lit_dest = np.full((F, SEGL), size, np.int32)
+    lit_base = np.zeros((F, SEGL), np.int32)
+    nlit_f = np.zeros(F, np.int32)
+    for fi, segs in enumerate(frame_segs):
+        off = 0
+        for k, (static, src, n) in enumerate(segs):
+            lit_dest[fi, k] = off
+            lit_base[fi, k] = src if static else sp + src * huf_out_bound
+            off += n
+        nlit_f[fi] = off
+    return lit_dest, lit_base, nlit_f
+
+
+def _gather_lits(lit_dest, lit_base, nlit_f, size, static_np, dec_streams, dev):
+    """Each frame's flat literal stream uint8[F, size], gathered once from
+    [static pool | decoded Huffman rows] through the segment map."""
+    st = from_reference_arrays(dev, dest=lit_dest, base=lit_base, nval=nlit_f,
+                               static=static_np)
+    lit_map = _build_map(st["dest"].long(), st["base"].long(), st["nval"].long(), size, 0)
+    lit_flat = torch.cat([st["static"], dec_streams.reshape(-1)])
+    return lit_flat[lit_map.clamp(0, lit_flat.shape[0] - 1)]
+
+
+def classic_decompress_archive(blob, plans, lay, seek_table, verify_checksum, return_device,
+                               dev, serial: bool = False, prefixes=None):
+    """Decode planned frames (``lay``: their ``plan.Layout``) on the serial
+    (``serial=True``) or the doubling route. ``prefixes``: optional
+    per-frame ref_prefix bytes (doubling route only), each a leading
+    literal run that match offsets reach into, sliced off the output."""
+    with phase_timer("dec.huf_batch") as pt:
+        dec_streams, huf_out_bound = _huf_batch_dev(lay.streams, dev)
+        pt.fence(dec_streams)
+    with phase_timer("dec.fse_batch") as pt2:
+        lls_b, mls_b, offs_b, ofvs_b, hasrep_dev, seq_bound = _fse_batch_dev(
+            lay.seq_blocks, dev)
+        pt2.fence(lls_b)
+    if serial:
+        res = _serial_exec_dispatch(
+            blob, plans, lay, lls_b, mls_b, ofvs_b, seq_bound, dec_streams, huf_out_bound,
+            seek_table, verify_checksum, return_device, dev,
+        )
+        if res is not NotImplemented:
+            return res
+    return _doubling_dispatch(
+        blob, plans, lay, lls_b, mls_b, offs_b, ofvs_b, hasrep_dev, seq_bound, dec_streams,
+        huf_out_bound, verify_checksum, return_device, dev, prefixes,
+    )
+
+
+# ---------------------------------------------------------- serial route ---
+
+
+def _literal_segs(fblocks):
+    return [s for blk in fblocks if blk[0] != "rle" for s in blk[1]]
+
+
+def _serial_layout(lay, sbd: int, rpb: int):
+    """The serial executor's record table, or None when a block's literals
+    exceed SERIAL_LITB."""
+    frames_blocks = []
+    for fblocks in lay.blocks:
+        recs = []
+        for blk in fblocks:
+            if blk[0] == "rle":
+                recs.append(blk)
+                continue
+            chunk_len = plan_mod.seg_len(blk[1])
+            if chunk_len > SERIAL_LITB:
+                return None
+            if blk[0] == "lit":
+                recs.append(("lit", chunk_len))
+            else:
+                recs.append(("seq", blk[2] * rpb, blk[3], chunk_len))
+        frames_blocks.append(recs)
+    meta, _n_rec = ek.build_records(frames_blocks, sbd)
+    return meta
+
+
+def _serial_exec_dispatch(blob, plans, lay, lls_b, mls_b, ofvs_b, seq_bound, dec_streams,
+                          huf_out_bound, seek_table, verify_checksum, return_device, dev):
+    """Decode every planned frame through the serial executor. Returns the
+    archive bytes / (device rows, sizes), or NotImplemented when the
+    literal-window guard rules this archive out (counted). The reference's
+    4 MiB VMEM ceiling on a frame's output does not apply on the card."""
+    F = len(plans)
+    bounds = plan_mod.frame_bounds(plans, seek_table)
+    OUTB = _pow2(max(bounds), 12)
+    SBd = min(2048, seq_bound)
+    rpb = seq_bound // SBd
+    with phase_timer("dec.serial_layout"):
+        meta = _serial_layout(lay, SBd, rpb)
+        if meta is None:
+            _serial_fallbacks["count"] += 1
+            return NotImplemented
+        frame_segs = [_literal_segs(fb) for fb in lay.blocks]
+        LITB = SERIAL_LITB
+        LRWS = LITB // 128 + 1
+        nlit_max = max(plan_mod.seg_len(s) for s in frame_segs)
+        LROWS = 1 << max((nlit_max // 128 + LRWS).bit_length(), 1)
+        LBYTES = LROWS * 128
+        static_np = _static_pool(lay.static)
+        lit_dest, lit_base, nlit_f = _lit_segments(frame_segs, static_np.shape[0],
+                                                   huf_out_bound, LBYTES)
+
+    with phase_timer("dec.serial_exec") as pt:
+        lits = _gather_lits(lit_dest, lit_base, nlit_f, LBYTES, static_np, dec_streams, dev)
+        lits = lits.to(torch.int32).reshape(F, LROWS, 128)
+        meta_dev = from_reference_arrays(dev, meta=meta)["meta"]
+        out_dev, meta_out = ek.serial_exec(
+            meta_dev, lls_b.reshape(-1, SBd), mls_b.reshape(-1, SBd),
+            ofvs_b.reshape(-1, SBd), lits, OUTB=OUTB, LITB=LITB, SBd=SBd,
+        )
+        out_dev = out_dev.reshape(F, OUTB)
+        pt.fence(out_dev)
+
+    meta_np = meta_out.cpu().numpy()
+    totals, bad, litc = meta_np[:, 0], meta_np[:, 1], meta_np[:, 2]
+    for fi, (hdr, _p, _c) in enumerate(plans):
+        if bad[fi]:
+            raise corruption_detected("match offset beyond window or literal overrun")
+        if litc[fi] != nlit_f[fi]:
+            raise corruption_detected("literal budget mismatch")
+        if hdr.content_size is not None and totals[fi] != hdr.content_size:
+            raise corruption_detected("frame content size mismatch")
+        if seek_table is not None and totals[fi] != bounds[fi]:
+            raise corruption_detected("frame size disagrees with seek table")
+
+    if return_device:
+        return out_dev, [int(t) for t in totals]
+
+    with phase_timer("dec.serial_pull+verify"):
+        out = out_dev.cpu().numpy()
+        parts = []
+        for fi, (hdr, _p, cpos) in enumerate(plans):
+            result = out[fi, : int(totals[fi])].tobytes()
+            if verify_checksum:
+                plan_mod.check_checksum(blob, hdr, cpos, result)
+            parts.append(result)
+    return b"".join(parts)
+
+
+# -------------------------------------------------------- doubling route ---
+
+
+def _fix_rep_carry(seq_blocks, rows, lls, ofvs, offs):
+    """Re-resolve repeat offsets sequentially across ONE frame's blocks
+    (batch rows ``rows`` of the FSE batch arrays), mutating ``offs``.
+    Same-block rep1 (ofv==1, ll>0, not the block's first sequence) is
+    already exact under the per-block fresh history — our own encoder
+    emits only that form — so the sequential pass runs only for the other
+    repeat forms (foreign archives)."""
+
+    def _unsafe(i):
+        n = seq_blocks[i]["nseq"]
+        ofv = ofvs[rows[i]][:n]
+        ll = lls[rows[i]][:n]
+        k = np.arange(n)
+        safe = (ofv == 1) & (ll > 0) & (k >= 1)
+        return bool(((ofv <= 3) & ~safe).any())
+
+    any_rep_after_first = any(_unsafe(i) for i in range(1, len(seq_blocks)))
+    if any_rep_after_first:
+        r1, r2, r3 = 1, 4, 8
+        for i, d in zip(rows, seq_blocks):
+            n = d["nseq"]
+            for k in range(n):
+                ofv = int(ofvs[i][k])
+                ll = int(lls[i][k])
+                if ofv > 3:
+                    off = ofv - 3
+                    r1, r2, r3 = off, r1, r2
+                else:
+                    j = ofv + (1 if ll == 0 else 0)
+                    if j == 1:
+                        off = r1
+                    elif j == 2:
+                        off = r2
+                        r1, r2 = r2, r1
+                    elif j == 3:
+                        off = r3
+                        r1, r2, r3 = r3, r1, r2
+                    else:
+                        off = r1 - 1
+                        r1, r2, r3 = off, r1, r2
+                offs[i][k] = off
+
+
+def _rep_carry(lay, hasrep_dev, lls_b, ofvs_b, offs_b, dev):
+    """Cross-block repeat-offset carry: only frames that use repeat codes
+    beyond their first block need the sequential host fix (our encoder
+    never emits them; foreign archives do). Returns ``offs_b`` with only
+    those frames' rows replaced."""
+    if not lay.seq_blocks:
+        return offs_b
+    hasrep = hasrep_dev.cpu().numpy()
+    frames = [rows for rows in lay.frame_rows if any(hasrep[r] for r in rows[1:])]
+    if not frames:
+        return offs_b
+    fix_rows = [r for rows in frames for r in rows]
+    rows_idx = torch.tensor(fix_rows, dtype=torch.long, device=dev)
+    lls_f, ofvs_f, offs_f = (t[rows_idx].cpu().numpy() for t in (lls_b, ofvs_b, offs_b))
+    row_pos = {r: i for i, r in enumerate(fix_rows)}
+    for rows in frames:
+        _fix_rep_carry([lay.seq_blocks[r] for r in rows], [row_pos[r] for r in rows],
+                       lls_f, ofvs_f, offs_f)
+    offs_b = offs_b.clone()
+    offs_b[rows_idx] = torch.from_numpy(offs_f).to(dev)
+    return offs_b
+
+
+def _triple_pools(lls_b, mls_b, offs_b, nseq_v, chunk_v, c_ll, c_ml, c_of, NB):
+    """The virtual (ll, ml, off) pool: [decoded slots | per-block trailing
+    literal runs | host constant pseudo-sequences]; returns the three
+    pools and the padding slot (consts[0] = (0, 0, 1))."""
+    seq_bound = lls_b.shape[1]
+    k = torch.arange(seq_bound, device=lls_b.device)[None, :]
+    mask = k < nseq_v[:, None]
+    lls = lls_b[:NB].to(torch.int64)
+    used = torch.where(mask, lls, 0).sum(dim=1)
+    trail = chunk_v - used
+    zero_t = torch.zeros_like(trail)
+    ll_pool = torch.cat([lls.reshape(-1), trail, c_ll])
+    ml_pool = torch.cat([mls_b[:NB].to(torch.int64).reshape(-1), zero_t, c_ml])
+    of_pool = torch.cat([offs_b[:NB].to(torch.int64).reshape(-1), zero_t + 1, c_of])
+    return ll_pool, ml_pool, of_pool, ll_pool.shape[0] - c_ll.shape[0]
+
+
+def _doubling_dispatch(blob, plans, lay, lls_b, mls_b, offs_b, ofvs_b, hasrep_dev, seq_bound,
+                       dec_streams, huf_out_bound, verify_checksum, return_device, dev,
+                       prefixes=None):
+    F = len(plans)
+    plens = [len(p) if p else 0 for p in prefixes] if prefixes else [0] * F
+    with phase_timer("dec.rep_carry"):
+        offs_b = _rep_carry(lay, hasrep_dev, lls_b, ofvs_b, offs_b, dev)
+
+    with phase_timer("dec.layout"):
+        NB = max(len(lay.seq_blocks), 1)
+        # Virtual pool layout for the (ll, ml, off) triples:
+        #   [0, NB*seq_bound)       decoded sequence slots
+        #   [NB*seq_bound, +NB)     per-block trailing literal runs
+        #   [NB*seq_bound+NB, +C)   host constant pseudo-sequences
+        trail_base = NB * seq_bound
+        const_base = trail_base + NB
+        consts = [(0, 0, 1)]  # padding slot
+        extra = bytearray()  # prefixes and RLE bytes, after lay.static
+
+        def const(ll, ml):
+            consts.append((ll, ml, 1))
+            return const_base + len(consts) - 1
+
+        def static_seg(b):
+            extra.extend(b)
+            return (True, len(lay.static) + len(extra) - len(b), len(b))
+
+        frame_segs, seq_slots, totals = [], [], []
+        chunk_lits = np.zeros(NB, np.int64)  # literal bytes per seq block
+        for fi, fblocks in enumerate(lay.blocks):
+            segs, slots = [], []
+            total = plens[fi]
+            if plens[fi]:
+                segs.append(static_seg(prefixes[fi]))
+                slots.append(const(plens[fi], 0))
+            for blk in fblocks:
+                if blk[0] == "rle":
+                    _rle, nrep, byte = blk
+                    segs.append(static_seg(bytes([byte])))
+                    slots.append(const(1, 0))
+                    if nrep > 1:
+                        slots.append(const(0, nrep - 1))
+                    total += nrep
+                elif blk[0] == "lit":
+                    segs += blk[1]
+                    n = plan_mod.seg_len(blk[1])
+                    slots.append(const(n, 0))
+                    total += n
+                else:
+                    _seq, bsegs, r, n = blk
+                    segs += bsegs
+                    chunk_lits[r] = plan_mod.seg_len(bsegs)
+                    slots.extend(range(r * seq_bound, r * seq_bound + n))
+                    slots.append(trail_base + r)
+            frame_segs.append(segs)
+            seq_slots.append(slots)
+            totals.append(total)
+
+        # ``totals`` counts only literal-only blocks; frames with sequences
+        # take their size from the frame header or, for headerless frames,
+        # from the decoded slots below.
+        S = _pow2(max(len(s) for s in seq_slots), 5)
+        L = _pow2(max(plan_mod.seg_len(s) for s in frame_segs), 7)
+        static_np = _static_pool(lay.static + bytes(extra))
+        lit_dest, lit_base, nlit_f = _lit_segments(frame_segs, static_np.shape[0],
+                                                   huf_out_bound, L)
+
+        # Per-frame run segments (dest, base) of the slot map; the dense
+        # maps are rebuilt on the device (scatter-add + cumsum).
+        seq_runs = []
+        for slots in seq_slots:
+            arr = np.asarray(slots, np.int64)
+            if arr.size == 0:
+                seq_runs.append(np.zeros((0, 2), np.int64))
+                continue
+            brk = np.nonzero(np.diff(arr) != 1)[0] + 1
+            run_starts = np.concatenate([[0], brk])
+            seq_runs.append(np.stack([run_starts, arr[run_starts]], axis=1))
+        SEGS = _pow2(max((len(r) for r in seq_runs), default=1), 2)
+        seq_dest = np.full((F, SEGS), S, np.int64)  # S = dropped sentinel
+        seq_base = np.full((F, SEGS), const_base, np.int64)
+        nslots = np.zeros(F, np.int64)
+        for fi, r in enumerate(seq_runs):
+            seq_dest[fi, : len(r)] = r[:, 0]
+            seq_base[fi, : len(r)] = r[:, 1]
+            nslots[fi] = len(seq_slots[fi])
+        consts_np = np.asarray(consts, np.int64)
+
+        out_sizes = []
+        for (hdr, _p, _c), plen in zip(plans, plens):
+            if hdr.content_size is not None and hdr.content_size > SEEKABLE_MAX_FRAME_SIZE:
+                # A corrupt header must not drive a giant allocation.
+                raise corruption_detected("declared frame size exceeds cap")
+            out_sizes.append(hdr.content_size + plen if hdr.content_size is not None else -1)
+
+        nseq_np = (np.asarray([d["nseq"] for d in lay.seq_blocks], np.int64)
+                   if lay.seq_blocks else np.zeros(NB, np.int64))
+        st = from_reference_arrays(
+            dev, nseq=nseq_np, chunk=chunk_lits, c_ll=consts_np[:, 0], c_ml=consts_np[:, 1],
+            c_of=consts_np[:, 2], seq_dest=seq_dest, seq_base=seq_base, nslots=nslots,
+        )
+        ll_pool, ml_pool, of_pool, pad_slot = _triple_pools(
+            lls_b, mls_b, offs_b, st["nseq"], st["chunk"], st["c_ll"], st["c_ml"],
+            st["c_of"], NB)
+        map_seq = _build_map(st["seq_dest"], st["seq_base"], st["nslots"], S, pad_slot)
+        map_seq = map_seq.clamp(0, ll_pool.shape[0] - 1)
+        lls, mls, offs = ll_pool[map_seq], ml_pool[map_seq], of_pool[map_seq]
+        if any(sz < 0 for sz in out_sizes) and lay.seq_blocks:
+            # Headerless frames: output sizes from the decoded slots.
+            tot_pre = (lls + mls).sum(dim=1).cpu().numpy()
+            out_sizes = [sz if sz >= 0 else int(t) for sz, t in zip(out_sizes, tot_pre)]
+        out_bound = _pow2(max(max(out_sizes), max(totals), 1), 7)
+
+    with phase_timer("dec.exec_dispatch") as pt3:
+        lits = _gather_lits(lit_dest, lit_base, nlit_f, L, static_np, dec_streams, dev)
+        out_dev, conv = seq_exec.execute_sequences_batch(
+            lits, lls, mls, offs, out_bound, n_doublings=max(1, (out_bound - 1).bit_length()))
+        # Corruption: a match reaching before the frame start, or a literal
+        # run over the block's budget (a negative trailing run).
+        pos_end = torch.cumsum(lls + mls, dim=1)
+        match_pos = pos_end - mls
+        bad = (((mls > 0) & (offs > match_pos)) | (lls < 0)).any(dim=1)
+        checks = torch.stack([pos_end[:, -1], bad.long(), conv.long()], dim=1)
+        pt3.fence(out_dev)
+
+    with phase_timer("dec.pull+verify"):
+        checks = checks.cpu().numpy()
+        out = None if return_device else out_dev.cpu().numpy()
+        parts = []
+        for i, (hdr, _p, cpos) in enumerate(plans):
+            tot, bad_i, conv_i = (int(v) for v in checks[i])
+            if bad_i:
+                raise corruption_detected("match offset beyond window or literal overrun")
+            if not conv_i:
+                # A frame that passed the offset check resolves within
+                # these passes unless a match with a non-positive offset
+                # starts at its first byte.
+                raise corruption_detected("copy chain does not end at a literal")
+            if hdr.content_size is not None and tot - plens[i] != hdr.content_size:
+                raise corruption_detected("frame content size mismatch")
+            if out is not None:
+                result = out[i, plens[i] : tot].tobytes()
+                if verify_checksum:
+                    plan_mod.check_checksum(blob, hdr, cpos, result)
+                parts.append(result)
+    if return_device:
+        return out_dev, [int(t) for t in checks[:, 0]]
+    return b"".join(parts)

@@ -12,6 +12,7 @@ from __future__ import annotations
 import sys
 import time
 
+import numpy as np
 import torch
 
 
@@ -29,6 +30,20 @@ def resolve_device(device=None) -> torch.device:
     elif dev.type != "cpu":
         raise ValueError(f"unsupported device {dev}")
     return dev
+
+
+def from_reference_arrays(device=None, **arrays) -> dict[str, torch.Tensor]:
+    """Stage numpy arrays of the reference's layouts (meta records, word
+    tables, table pools, stat rows) as the port's tensors on ``device``.
+    uint32 arrays keep their bits as int32."""
+    dev = resolve_device(device)
+    out = {}
+    for name, a in arrays.items():
+        a = np.ascontiguousarray(a)
+        if a.dtype == np.uint32:
+            a = a.view(np.int32)
+        out[name] = torch.from_numpy(a.copy()).to(dev)
+    return out
 
 
 _TIMING = False

@@ -1,15 +1,22 @@
 """Device stages of the archive pipeline.
 
-Six CUDA kernels (``csrc/``) carry the archive paths, each behind a
-wrapper in its module that also holds the kernel's plain PyTorch version:
+Ten CUDA kernels (``csrc/``), each behind a wrapper in its module that
+also holds the kernel's plain PyTorch version:
 
 - ``match_kernel.match`` - level-1 LZ77 parse, one thread block per frame;
 - ``reach_kernel.chunk_pointer_tables`` and ``reach_kernel.chunk_mark`` -
   the anchor pass of the parallel parse (levels 2-19, prefix mode, and
-  level-1 frame sizes the match kernel does not take, ``match_tpu.py``);
+  level-1 frame sizes the match kernel does not take, ``match_tpu.py``)
+  and of the device Huffman decode (``huffman_spec.py``);
 - ``fse_kernel.fse_encode`` - FSE sequence bitstreams, one block per job;
 - ``decode_kernel.wide_decode`` and ``ring_kernel.ring_decode`` - fused FSE
-  decode and sequence execution, one block per frame.
+  decode and sequence execution, one warp per frame;
+- ``entropy.fse_decode_sequences`` - FSE sequence decode, one thread per
+  block (the serial and pointer-doubling decode routes);
+- ``exec_kernel.serial_exec`` - execution of pre-decoded sequences, one
+  warp per frame (the serial decode route);
+- ``byte_kernels.byte_histogram`` and ``byte_kernels.table_lookup`` -
+  tile-local byte passes, on no archive path (as in the reference).
 
 A wrapper runs the plain version only for tensors on the CPU; for CUDA
 tensors it launches its kernel or raises. ``launches`` counts kernel
@@ -17,7 +24,8 @@ launches per wrapper (plain-version calls do not count).
 """
 
 launches = {"match": 0, "reach_tables": 0, "reach_mark": 0, "fse": 0,
-            "ring_decode": 0, "wide_decode": 0}
+            "ring_decode": 0, "wide_decode": 0, "fse_decode": 0, "exec": 0,
+            "byte_histogram": 0, "table_lookup": 0}
 
 
 def reset_launches() -> None:

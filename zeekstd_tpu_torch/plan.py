@@ -1,8 +1,13 @@
-"""Host decode planning (port of ``zeekstd_tpu/tpu_codec._plan_frame``
-and ``_words_from_bytes``): walk a frame's block and section headers and
-entropy-table descriptions into a plan the device stage consumes."""
+"""Host decode planning, shared by every decode route (port of
+``zeekstd_tpu/tpu_codec._plan_frame`` and ``_words_from_bytes`` and of
+the planning helpers of ``zeekstd_tpu/tpu_archive.py``): walk a frame's
+block and section headers and entropy-table descriptions into a plan,
+lay the planned frames out as literal segments and block entries, stage
+the FSE decode inputs, and check the content checksums."""
 
 from __future__ import annotations
+
+from dataclasses import dataclass
 
 import numpy as np
 
@@ -10,6 +15,185 @@ from .codec import frame as frame_mod
 from .codec import huffman as huf
 from .codec import literals as lit_mod
 from .codec import sequences as seq_mod
+from .constants import SEEKABLE_MAX_FRAME_SIZE, ZSTD_BLOCK_SIZE_MAX
+from .errors import checksum_wrong, corruption_detected
+from .native import loader
+
+
+def checksum(data) -> int:
+    """The low 32 bits of XXH64(data), as a frame's content checksum."""
+    return loader.xxh64(data) & 0xFFFF_FFFF
+
+
+def check_checksum(blob, hdr, cpos: int, result: bytes) -> None:
+    """Raise ``checksum_wrong`` when the frame carries a content checksum
+    (at ``blob[cpos:cpos + 4]``) that ``result`` does not match."""
+    if hdr.has_checksum:
+        stored = int.from_bytes(blob[cpos : cpos + 4], "little")
+        if checksum(result) != stored:
+            raise checksum_wrong("content checksum mismatch")
+
+
+def plan_archive(blob, seek_table):
+    """Plan every frame of the archive: [(hdr, plan, checksum_pos)]."""
+    plans = []
+    if seek_table is not None:
+        for i in range(seek_table.num_frames):
+            start = seek_table.frame_start_comp(i)
+            if seek_table.frame_size_decomp(i) == 0 and seek_table.frame_end_comp(i) == start:
+                continue
+            hdr_i, plan_i, fpos_i = _plan_frame(blob, start)
+            # The frame must consume exactly its seek-table extent: a
+            # corrupted header (e.g. a flipped checksum-flag bit) otherwise
+            # shifts the trailer and decodes silently wrong.
+            consumed = fpos_i + (4 if hdr_i.has_checksum else 0)
+            if consumed != seek_table.frame_end_comp(i):
+                raise corruption_detected(
+                    f"frame {i} consumed {consumed - start} bytes; seek "
+                    f"table records {seek_table.frame_size_comp(i)}"
+                )
+            plans.append((hdr_i, plan_i, fpos_i))
+    else:
+        pos = 0
+        while pos < len(blob):
+            magic = int.from_bytes(blob[pos : pos + 4], "little")
+            if (magic & 0xFFFFFFF0) == 0x184D2A50:  # skippable (incl. seek table)
+                size = int.from_bytes(blob[pos + 4 : pos + 8], "little")
+                pos += 8 + size
+                continue
+            hdr, plan, fpos = _plan_frame(blob, pos)
+            plans.append((hdr, plan, fpos))
+            pos = fpos + (4 if hdr.has_checksum else 0)
+    return plans
+
+
+@dataclass
+class Layout:
+    """The planned frames as the decode routes consume them.
+
+    streams     every Huffman literal stream (bytes, olen, table), in plan
+                order; a stream's index is its row of the decoded batch
+    seq_blocks  every block with sequences, in plan order; a block's index
+                is its row of the FSE-decode batch
+    frame_rows  per frame, its rows of ``seq_blocks``
+    static      the raw blocks' and the uncompressed literal sections'
+                bytes, end to end
+    blocks      per frame, its blocks in order:
+                  ("lit", segs)            literals only (a raw block, or a
+                                           compressed block without
+                                           sequences)
+                  ("rle", nrep, byte)      an RLE block
+                  ("seq", segs, row, nseq) a compressed block with sequences
+                ``segs`` are the block's literal segments (static, src, n):
+                ``static[src:src + n]`` when static, else the first n bytes
+                of decoded stream ``src``."""
+
+    streams: list
+    seq_blocks: list
+    frame_rows: list
+    static: bytes
+    blocks: list
+
+
+def seg_len(segs) -> int:
+    return sum(n for _static, _src, n in segs)
+
+
+def collect(plans) -> Layout:
+    """One walk over every planned frame's blocks."""
+    streams, seq_blocks, frame_rows, blocks = [], [], [], []
+    static = bytearray()
+    for _hdr, plan, _c in plans:
+        rows, fblocks = [], []
+        for kind, *args in plan:
+            if kind == "rle":
+                fblocks.append(("rle", args[1], args[0]))
+                continue
+            if kind == "raw":
+                segs = [(True, len(static), len(args[0]))]
+                static += args[0]
+                nseq = 0
+            else:
+                d = args[0]
+                if "streams" in d:
+                    segs = [(False, len(streams) + k, olen)
+                            for k, (_s, olen, _t) in enumerate(d["streams"])]
+                    streams.extend(d["streams"])
+                else:
+                    lb = d.get("lit_bytes", b"")
+                    segs = [(True, len(static), len(lb))]
+                    static += lb
+                nseq = d.get("nseq", 0)
+            if nseq > 0:
+                rows.append(len(seq_blocks))
+                fblocks.append(("seq", segs, len(seq_blocks), nseq))
+                seq_blocks.append(d)
+            else:
+                fblocks.append(("lit", segs))
+        frame_rows.append(rows)
+        blocks.append(fblocks)
+    return Layout(streams, seq_blocks, frame_rows, bytes(static), blocks)
+
+
+def fse_stage(seq_blocks):
+    """Host staging of the FSE decode inputs: bitstream words, start bits,
+    deduped packed decode tables, per-block table indices."""
+    word_bound = 1 << max(
+        ((max(len(d["payload"]) for d in seq_blocks) + 3) // 4).bit_length(), 4
+    )
+    B = len(seq_blocks)
+    Bp = 1 << max((B - 1).bit_length(), 2)
+    words = np.zeros((Bp, word_bound), np.uint32)
+    starts = np.zeros(Bp, np.int32)
+    tidx = np.zeros((Bp, 3), np.int32)
+    tables = []
+    tbl_of = {}
+
+    def table_index(t):
+        ti = tbl_of.get(id(t))
+        if ti is None:
+            ti = tbl_of[id(t)] = len(tables)
+            tables.append(t)
+        return ti
+
+    for i, d in enumerate(seq_blocks):
+        w, sb = _words_from_bytes(d["payload"], word_bound)
+        words[i] = w
+        starts[i] = sb
+        ll_t, of_t, ml_t = d["tables"]
+        tidx[i] = [table_index(ll_t), table_index(of_t), table_index(ml_t)]
+    T = len(tables)
+    Tp = 1 << max((T - 1).bit_length(), 1)
+    packed = np.zeros((Tp, 512), np.int32)
+    logs_t = np.zeros(Tp, np.int32)
+    for ti, t in enumerate(tables):
+        size = 1 << t.accuracy_log
+        packed[ti, :size] = (
+            t.symbol.astype(np.int32)
+            | (t.nb_bits.astype(np.int32) << 8)
+            | (t.baseline.astype(np.int32) << 16)
+        )
+        logs_t[ti] = t.accuracy_log
+    return words, starts, tidx, packed, logs_t, word_bound
+
+
+def frame_bounds(plans, seek_table):
+    """Each planned frame's output bound: its seek-table size, else its
+    declared content size, else 128 KiB per block. Raises on a bound over
+    the 1 GiB seekable frame cap (a corrupt header must not drive a giant
+    allocation)."""
+    bounds = []
+    for fi, (hdr, plan, _) in enumerate(plans):
+        if seek_table is not None:
+            b = seek_table.frame_size_decomp(fi)
+        elif hdr.content_size is not None:
+            b = hdr.content_size
+        else:
+            b = len(plan) * ZSTD_BLOCK_SIZE_MAX
+        if b > SEEKABLE_MAX_FRAME_SIZE:
+            raise corruption_detected("declared frame size exceeds cap")
+        bounds.append(b)
+    return bounds
 
 
 def _words_from_bytes(payload: bytes, word_bound: int):
@@ -31,7 +215,6 @@ def _plan_frame(frame: bytes, pos: int = 0):
     Returns (hdr, plan, end_pos) with end_pos at the content checksum
     position (if any). Plan entries: ("raw", bytes) | ("rle", byte, n) |
     ("cmp", desc)."""
-    from .errors import corruption_detected
     hdr = frame_mod.parse_frame_header(frame[pos:])
     fpos = pos + hdr.header_size
 
