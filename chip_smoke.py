@@ -38,7 +38,9 @@ Phases (any failure raises; nothing is caught):
                through decompress_frame). The reachability kernels, the
                FSE kernel and the wide decoder must have launched.
   4b. timing - as phase 4 for the level-3 configuration (decode on the
-               wide route), and the kernels of the level-3 path.
+               wide route), and the kernels of the level-3 path; the wide
+               decoder's three stages (FSE pass, scan, pointer jumping)
+               timed apart on the level-3 decode's inputs.
   2c. routes - the 256 KiB input's level-1 (96 KiB frames) and level-3
                (32 KiB frames) archives decoded on the card under
                ZEEKSTD_TPU_EXEC=serial and =doubling, exactly; every exec,
@@ -368,6 +370,27 @@ def time_kernel(name, a, k, m, reps=5):
           "exec": m.ek.serial_exec, "fse_decode": m.ent.fse_decode_sequences,
           "byte_histogram": m.bk.byte_histogram, "table_lookup": m.bk.table_lookup}[name]
     return cuda_ms(lambda: fn(*a, **k), reps)
+
+
+def wide_stage_ms(dk, a, k, reps=5):
+    """Mean CUDA-event milliseconds of each stage of the wide decoder on one
+    call's inputs, over ``reps`` runs after a warm one (stage launches made
+    here are not counted)."""
+    _out, _mo, stages = dk.wide_stages(*a, **k)
+    for _name, launch in stages:
+        launch()
+    torch.cuda.synchronize()
+    evs = [torch.cuda.Event(enable_timing=True) for _ in range(len(stages) + 1)]
+    total = [0.0] * len(stages)
+    for _ in range(reps):
+        evs[0].record()
+        for i, (_name, launch) in enumerate(stages):
+            launch()
+            evs[i + 1].record()
+        torch.cuda.synchronize()
+        for i in range(len(stages)):
+            total[i] += evs[i].elapsed_time(evs[i + 1])
+    return {name: t / reps for (name, _l), t in zip(stages, total)}
 
 
 def med_spread(n, samples):
@@ -841,7 +864,7 @@ def main():
                        "zeekstd_tpu/ops/pallas_kernels.py:181"),
         "fse": ("zeekstd_tpu_torch/csrc/fse_kernel.cu", "zeekstd_tpu/ops/fse_kernel.py:280"),
         "ring_decode": ("zeekstd_tpu_torch/csrc/fused_decode.cu", "zeekstd_tpu/ops/ring_kernel.py:541"),
-        "wide_decode": ("zeekstd_tpu_torch/csrc/fused_decode.cu", "zeekstd_tpu/ops/decode_kernel.py:388"),
+        "wide_decode": ("zeekstd_tpu_torch/csrc/wide_decode.cu", "zeekstd_tpu/ops/decode_kernel.py:388"),
         "exec": ("zeekstd_tpu_torch/csrc/exec_kernel.cu", "zeekstd_tpu/ops/exec_kernel.py:372"),
         "fse_decode": ("zeekstd_tpu_torch/csrc/fse_decode.cu",
                        "zeekstd_tpu/ops/entropy.py:199 (an XLA scan, not a pallas_call)"),
@@ -892,6 +915,11 @@ def main():
             extra["fse_level3"] = row
         else:
             table.append(row)
+        if name == "wide_decode":
+            stages = wide_stage_ms(mods.dk, a, k)
+            extra["wide_stages_ms"] = stages
+            log(f"[timing] wide_decode stages (phase 3b shapes, F={a[4].shape[0]}, "
+                f"OUTB={k['OUTB']}): " + ", ".join(f"{n} {t:.4f} ms" for n, t in stages.items()))
         lib = f", library {lib_ms:.4f} ms" if lib_ms is not None else ""
         log(f"[timing] {name} (phase {path} shapes): {ms:.4f} ms/launch, bound "
             f"{bound_ms:.6f} ms ({moved} bytes), plain {t_plain * 1e3:.1f} ms{lib}, "

@@ -102,6 +102,120 @@ def test_decode_kernels_equal_plain(calls, route):
         np.testing.assert_array_equal(ob[f, :tot], ob0[f, :tot])
 
 
+def _wide_equals_plain(a, k):
+    """The CUDA wide decoder on ``a`` equals wide_plain exactly: meta_out
+    columns 0-2 and each frame's bytes up to its total. Returns meta_out."""
+    before = ops.launches["wide_decode"]
+    out, mo = dk.wide_decode(*a, **k)
+    assert ops.launches["wide_decode"] == before + 1
+    out0, mo0 = dk.wide_plain(*(t.cpu() for t in a), k["OUTB"], k["LITB"])
+    assert torch.equal(mo[:, :3].cpu(), mo0[:, :3])
+    F = mo.shape[0]
+    ob, ob0 = out.reshape(F, -1).cpu(), out0.reshape(F, -1)
+    for f, tot in enumerate(mo0[:, 0].tolist()):
+        assert torch.equal(ob[f, :tot], ob0[f, :tot]), f
+    return mo0
+
+
+def _fused_mutation(i, a):
+    """Mutation ``i`` of 16 (seeded) of a fused call's meta rows or words."""
+    consts, meta, words, tables, lits = a
+    rng = np.random.default_rng(100 + i)
+    m = meta.cpu().reshape(-1, dk.META_COLS).clone()
+    w = words.cpu().clone()
+    seq = torch.nonzero(m[:, dk.M_KIND] == dk.KIND_SEQ).flatten().tolist()
+    r = seq[int(rng.integers(0, len(seq)))]
+    if i < 3:
+        m[r, dk.M_NSEQ] = (m[r, dk.M_NSEQ] + 1, m[r, dk.M_NSEQ] - 1, m[r, dk.M_NSEQ] * 8)[i]
+    elif i < 7:
+        m[r, dk.M_STARTBIT] += (1, -1, 33, -int(rng.integers(2, 33)))[i - 3]
+    elif i < 9:
+        m[r, dk.M_LITN] += (57, -int(rng.integers(1, 200)))[i - 7]
+    elif i < 11:
+        m[r, dk.M_LOGS] = int(rng.integers(0, 1 << 15))
+    elif i < 14:
+        col = (dk.M_TLL, dk.M_TOF, dk.M_TML)[i - 11]
+        m[r, col] = (-1, tables.shape[0], tables.shape[0] + 9)[i - 11]
+    else:
+        row = w[min(max(int(m[r, dk.M_WROW]), 0), w.shape[0] - 1)]
+        nbits = max(int(m[r, dk.M_STARTBIT]), 32)
+        for _ in range(1 + 4 * (i - 14)):
+            j = int(rng.integers(0, nbits))
+            row[j // 32] ^= torch.tensor(1 << (j % 32), dtype=torch.int64).to(torch.int32)
+    dev = meta.device
+    return [consts, m.reshape(meta.shape).to(dev), w.to(dev), tables, lits]
+
+
+@pytest.mark.parametrize("i", range(16))
+def test_wide_decode_equals_plain_on_mutations(calls, i):
+    (a, k), = calls["wide"]
+    _wide_equals_plain(_fused_mutation(i, a), k)
+
+
+@pytest.mark.parametrize("i", range(11, 16))
+def test_ring_decode_equals_plain_on_row_and_bit_mutations(calls, i):
+    """Table rows outside the pool and flipped bits on the ring route."""
+    (a, k), = calls["ring"]
+    a = _fused_mutation(i, a)
+    out, mo = rk.ring_decode(*a, **k)
+    out0, mo0 = rk.ring_plain(*(t.cpu() for t in a), k["OUTB"])
+    assert torch.equal(mo[:, :3].cpu(), mo0[:, :3])
+    F = mo.shape[0]
+    ob = out.cpu().numpy().view(np.uint8).reshape(F, -1)
+    ob0 = out0.numpy().view(np.uint8).reshape(F, -1)
+    for f, tot in enumerate(mo0[:, 0].tolist()):
+        np.testing.assert_array_equal(ob[f, :tot], ob0[f, :tot])
+
+
+def _hand_wide(card, frames, pools, OUTB, tabs=None, words=None):
+    meta, _n = dk.build_records(frames)
+    lits = np.zeros((len(pools), 2048, 128), np.int32)
+    for f, p in enumerate(pools):
+        lits[f].reshape(-1)[: len(p)] = np.frombuffer(p, np.uint8)
+    if tabs is None:
+        tabs = np.zeros((1, 512), np.int32)
+    if words is None:
+        words = np.zeros((2, 16), np.int32)
+    a = [torch.from_numpy(np.ascontiguousarray(x)).to(card)
+         for x in (dk.make_consts(), meta, words, tabs, lits)]
+    return a, dict(OUTB=OUTB, LITB=128 << 10)
+
+
+def test_wide_decode_match_at_position_zero(card):
+    """A record whose first sequence is a match at position 0 (its bytes
+    read 0), then matches and literals at random, an RLE run and a frame
+    of one literal run."""
+    rng = np.random.default_rng(3)
+    tabs = np.zeros((3, 512), np.int64)
+    tabs[0, 0::2] = 0 | (1 << 8)   # ll code 0: ll 0; one update bit
+    tabs[0, 1::2] = 4 | (1 << 8)   # ll code 4: ll 4
+    tabs[1, :] = 3                 # offset code 3: offset value 8-15
+    tabs[2, :] = 5                 # ml code 5: ml 8
+    words = rng.integers(0, 1 << 32, (2, 16), dtype=np.uint64).astype(np.uint32).view(np.int32)
+    nseq = 40
+    pools = [rng.integers(0, 256, 256, dtype=np.uint8).tobytes(), b"literal!!"]
+    a, k = _hand_wide(card, [[("seq", 0, nseq, 200, 0, 1, 2, 0, 4 * nseq - 1), ("rle", 5, 7)],
+                             [("lit", 9)]], pools, 8192, tabs.astype(np.int32), words)
+    mo0 = _wide_equals_plain(a, k)
+    assert mo0[:, 1].tolist() == [1, 0]
+
+
+def test_wide_decode_literal_and_rle_frames(card):
+    rng = np.random.default_rng(4)
+    pools = [rng.integers(0, 256, 700, dtype=np.uint8).tobytes(), b"", b"xyz"]
+    a, k = _hand_wide(card, [[("lit", 300), ("rle", 1000, 0x41), ("lit", 400)],
+                             [("rle", 4096, 200)], [("lit", 3), ("rle", 77, 0)]], pools, 4096)
+    mo0 = _wide_equals_plain(a, k)
+    assert mo0[:, :3].tolist() == [[1700, 0, 700], [4096, 0, 0], [80, 0, 3]]
+
+
+@pytest.mark.parametrize("OUTB", [4096, 640])
+def test_wide_decode_output_smaller_than_frames(calls, OUTB):
+    (a, k), = calls["wide"]
+    mo0 = _wide_equals_plain(a, dict(k, OUTB=OUTB))
+    assert (mo0[:, 0] == OUTB).all() and mo0[:, 1].all()
+
+
 def test_card_archives_equal_cpu_archives(card):
     data = _data(96 << 10)
     before = dict(ops.launches)

@@ -4,7 +4,7 @@ Two libraries, both with a plain C interface loaded through ``ctypes``:
 
 - ``native/host.cpp`` -> the host library (g++): XXH64 and the Huffman
   table construction and stream decoding.
-- ``csrc/*.cu`` -> the kernel library (nvcc, ``sm_90a``): the four CUDA
+- ``csrc/*.cu`` -> the kernel library (nvcc, ``sm_90a``): the CUDA
   kernels of the archive pipeline. It is built only when a wrapper is
   about to launch a kernel, so importing the package needs no ``nvcc``.
 

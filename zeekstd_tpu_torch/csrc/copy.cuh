@@ -9,8 +9,8 @@ namespace {
 
 constexpr int LANES = 32;
 
-// Literals one int32 per byte (the wide decoder's and the serial
-// executor's contract). Reads outside the pool return 0.
+// Literals one int32 per byte (the serial executor's contract). Reads
+// outside the pool return 0.
 struct WideLits {
   const int* p;
   long long n;

@@ -1,20 +1,17 @@
-// Fused FSE decode + sequence execution for Hopper, behind two launchers
-// that keep the two TPU kernels' contracts:
+// Fused FSE decode + sequence execution for Hopper, behind
+// zk_ring_decode_launch, which keeps the ring contract of
+// zeekstd_tpu/ops/ring_kernel.py (_build / get_ring_kernel, the pallas_call
+// at ring_kernel.py:541): literal pools as LE words in, LE words out;
+// windows <= 512 KiB. (The wide contract has its own staged decoder,
+// wide_decode.cu.)
 //
-//   zk_ring_decode_launch  replaces zeekstd_tpu/ops/ring_kernel.py
-//       (_build / get_ring_kernel, the pallas_call at ring_kernel.py:541):
-//       literal pools as LE words in, LE words out; windows <= 512 KiB.
-//   zk_wide_decode_launch  replaces zeekstd_tpu/ops/decode_kernel.py
-//       (_build / get_decode_kernel, the pallas_call at decode_kernel.py:388):
-//       one int32 per literal byte in, bytes out; any window.
-//
-// Both run decode_frame below: records of a frame in order, FSE decode
-// with three states, repeat offsets threaded across blocks, execution of
-// literal, match (any offset, overlapping included), RLE and raw records.
-// The two routes differ only where the reference kernels do: the literal
-// clamp (block budget vs the wide kernel's staging window), the 512 KiB
-// offset check of the ring route, and how bitstream bits are fetched. The
-// plain versions are ops/decode_kernel.py::decode_plain (both routes).
+// decode_frame below walks the records of a frame in order: FSE decode with
+// three states, repeat offsets threaded across blocks, execution of literal,
+// match (any offset, overlapping included), RLE and raw records. The
+// reference's rules: a literal run may not exceed its block's literal
+// budget, an offset over 512 KiB marks the frame bad, and each sequence's
+// bits are read from the four words below the stream position at its start.
+// The plain version is ops/decode_kernel.py::decode_plain (ring=True).
 //
 // What bounds it on this card: the walk over a frame's sequences is serial
 // (each FSE state and repeat offset depends on the previous sequence), and
@@ -52,16 +49,11 @@ struct DecArgs {
   int nw, WB;
   const int* tables;  // (Tp, 512): symbol | nb_bits << 8 | baseline << 16
   int ntables;
-  int OUTB, LITB, LROWS;
+  int OUTB;
   int* meta_out;  // (F, 128)
 };
 
-__device__ __forceinline__ uint32_t low_mask(int n) {
-  return (1u << (n < 31 ? n : 31)) - 1u;
-}
-
-// The ring route's literal source: packed LE words (the wide route's one
-// int32 per byte is WideLits, copy.cuh). Reads outside the pool return 0.
+// The literal source: packed LE words. Reads outside the pool return 0.
 struct RingLits {
   const uint8_t* p;
   long long n;
@@ -70,9 +62,8 @@ struct RingLits {
   }
 };
 
-template <bool kRing, typename Lits>
 __device__ void decode_frame(const DecArgs& a, int f, uint8_t* out,
-                             const Lits& lit, uint32_t* sw, int* stab) {
+                             const RingLits& lit, uint32_t* sw, int* stab) {
   const int lane = threadIdx.x;
   const int* c = a.consts;
   int pos = 0, r1 = 1, r2 = 4, r3 = 8, bad = 0, litcur = 0;
@@ -86,15 +77,9 @@ __device__ void decode_frame(const DecArgs& a, int f, uint8_t* out,
     }
     const int litn = m[M_LITN];
     const int litcur0 = litcur;
-    int lit_lim;
-    if (kRing) {
-      lit_lim = litcur0 + litn;
-    } else {
-      const int lrws = a.LITB / 128 + 1;
-      lit_lim = min(litcur0 / 128, a.LROWS - lrws) * 128 + a.LITB + 128;
-    }
+    const int lit_lim = litcur0 + litn;
     if (kind == KIND_SEQ) {
-      const uint32_t* grow = a.words + (long long)min(max(m[M_WROW], 0), a.nw - 1) * a.WB;
+      const uint32_t* grow = a.words + (long long)zk_clamp_row(m[M_WROW], a.nw) * a.WB;
       const int startbit = m[M_STARTBIT];
       const int nstage = min(min(a.WB, STAGE_WORDS),
                              (int)((unsigned)max(startbit, 0) >> 5) + 2);
@@ -102,7 +87,7 @@ __device__ void decode_frame(const DecArgs& a, int f, uint8_t* out,
       __syncwarp();
       for (int i = lane; i < nstage; i += LANES) sw[i] = grow[i];
       for (int k = 0; k < 3; ++k) {
-        const int* src = a.tables + (long long)min(max(trow[k], 0), a.ntables - 1) * 512;
+        const int* src = a.tables + (long long)zk_clamp_row(trow[k], a.ntables) * 512;
         for (int i = lane; i < 512; i += LANES) stab[k * 512 + i] = src[i];
       }
       __syncwarp();
@@ -114,7 +99,7 @@ __device__ void decode_frame(const DecArgs& a, int f, uint8_t* out,
         const int w = min(max(lo >> 5, 0), a.WB - 2);
         const int sh = lo & 31;
         const uint32_t hi = sh == 0 ? 0u : W(w + 1) << (32 - sh);
-        return ((W(w) >> sh) | hi) & low_mask(n);
+        return ((W(w) >> sh) | hi) & zk_low_mask(n);
       };
       const int logs = m[M_LOGS];
       const int ll_log = logs & 31, of_log = (logs >> 5) & 31, ml_log = (logs >> 10) & 31;
@@ -130,24 +115,19 @@ __device__ void decode_frame(const DecArgs& a, int f, uint8_t* out,
         const int of_e = stab[512 + (of_s & 511)];
         const int ml_e = stab[1024 + (ml_s & 511)];
         const int ll_e = stab[ll_s & 511];
-        // The ring kernel reads every field of a sequence from the four
-        // words below `rem` at the sequence start.
-        uint32_t w0 = 0, w1 = 0, w2 = 0, w3 = 0;
-        int wbase = 0;
-        if (kRing) {
-          const int bw = min(max((int)((unsigned)rem >> 5) - 3, 0), a.WB - 4);
-          w0 = W(bw); w1 = W(bw + 1); w2 = W(bw + 2); w3 = W(bw + 3);
-          wbase = bw * 32;
-        }
+        // Every field of a sequence comes from the four words below `rem`
+        // at the sequence start.
+        const int bw = min(max((int)((unsigned)rem >> 5) - 3, 0), a.WB - 4);
+        const uint32_t w0 = W(bw), w1 = W(bw + 1), w2 = W(bw + 2), w3 = W(bw + 3);
+        const int wbase = bw * 32;
         auto rd = [&](int rm, int n) -> uint32_t {
-          if (!kRing) return read_bits(rm, n);
           if (n <= 0) return 0u;
           const int lo = max(rm - n - wbase, 0);
           const int ws = lo >> 5, sh = lo & 31;
           const uint32_t x = ws == 0 ? w0 : ws == 1 ? w1 : ws == 2 ? w2 : w3;
           const uint32_t y = ws == 0 ? w1 : ws == 1 ? w2 : ws == 2 ? w3 : 0u;
           const uint32_t v = sh == 0 ? x : (x >> sh) | (y << (32 - sh));
-          return v & low_mask(n);
+          return v & zk_low_mask(n);
         };
         const int of_code = of_e & 0xFF;
         const int ofv = (int)((1u << min(of_code, 31)) + rd(rem, of_code));
@@ -192,14 +172,8 @@ __device__ void decode_frame(const DecArgs& a, int f, uint8_t* out,
         copy_lits(out, pos, lit, litcur, ll_w);
         const int mpos = pos + ll_w;
         const int ml_w = min(ml, a.OUTB - mpos);
-        int safe_off;
-        if (kRing) {
-          bad |= ((ml > 0 && (off <= 0 || off > mpos || off > RING)) || ml_w != ml);
-          safe_off = min(max(off, 1), max(min(mpos, RING), 1));
-        } else {
-          bad |= ((ml > 0 && (off <= 0 || off > mpos)) || ml_w != ml);
-          safe_off = min(max(off, 1), max(mpos, 1));
-        }
+        bad |= ((ml > 0 && (off <= 0 || off > mpos || off > RING)) || ml_w != ml);
+        const int safe_off = min(max(off, 1), max(min(mpos, RING), 1));
         __syncwarp();
         copy_match(out, mpos, safe_off, ml_w);
         __syncwarp();
@@ -210,16 +184,14 @@ __device__ void decode_frame(const DecArgs& a, int f, uint8_t* out,
       bad |= rem != 0;
       const int trail = litn - (litcur - litcur0);
       bad |= trail < 0;
-      int trail_c = min(max(trail, 0), a.OUTB - pos);
-      if (!kRing) trail_c = min(trail_c, max(lit_lim - litcur, 0));
+      const int trail_c = min(max(trail, 0), a.OUTB - pos);
       bad |= trail_c != max(trail, 0);
       copy_lits(out, pos, lit, litcur, trail_c);
       __syncwarp();
       pos += trail_c;
       litcur += trail_c;
     } else if (kind == KIND_LIT) {
-      int litn_w = min(litn, a.OUTB - pos);
-      if (!kRing) litn_w = min(litn_w, max(lit_lim - litcur0, 0));
+      const int litn_w = min(litn, a.OUTB - pos);
       bad |= litn_w != litn;
       copy_lits(out, pos, lit, litcur0, litn_w);
       __syncwarp();
@@ -249,18 +221,7 @@ ring_decode_kernel(DecArgs a, const uint8_t* __restrict__ lit_bytes, int LW,
   __shared__ int stab[3 * 512];
   const int f = blockIdx.x;
   const RingLits lit{lit_bytes + (long long)f * LW * 4, (long long)LW * 4};
-  decode_frame<true>(a, f, (uint8_t*)(out + (long long)f * (a.OUTB / 4)), lit, sw, stab);
-}
-
-__global__ void __launch_bounds__(LANES)
-wide_decode_kernel(DecArgs a, const int* __restrict__ lits,
-                   uint8_t* __restrict__ out) {
-  extern __shared__ uint32_t sw[];
-  __shared__ int stab[3 * 512];
-  const int f = blockIdx.x;
-  const long long lrow = (long long)a.LROWS * 128;
-  const WideLits lit{lits + f * lrow, lrow};
-  decode_frame<false>(a, f, out + (long long)f * a.OUTB, lit, sw, stab);
+  decode_frame(a, f, (uint8_t*)(out + (long long)f * (a.OUTB / 4)), lit, sw, stab);
 }
 
 template <typename K>
@@ -279,28 +240,11 @@ extern "C" int zk_ring_decode_launch(const void* consts, const void* meta,
                                      void* stream) {
   const DecArgs a{(const int*)consts, (const int*)meta, nrecp,
                   (const uint32_t*)words, nw, WB, (const int*)tables, ntables,
-                  OUTB, 0, 0, (int*)meta_out};
+                  OUTB, (int*)meta_out};
   if (int e = set_smem(ring_decode_kernel)) return e;
   if (F > 0) {
     ring_decode_kernel<<<F, LANES, STAGE_WORDS * sizeof(uint32_t), (cudaStream_t)stream>>>(
         a, (const uint8_t*)lit_words, LW, (uint32_t*)out);
-  }
-  return zk_last_error();
-}
-
-extern "C" int zk_wide_decode_launch(const void* consts, const void* meta,
-                                     int nrecp, const void* words, int nw,
-                                     int WB, const void* tables, int ntables,
-                                     const void* lits, int F, int LROWS,
-                                     int OUTB, int LITB, void* out,
-                                     void* meta_out, void* stream) {
-  const DecArgs a{(const int*)consts, (const int*)meta, nrecp,
-                  (const uint32_t*)words, nw, WB, (const int*)tables, ntables,
-                  OUTB, LITB, LROWS, (int*)meta_out};
-  if (int e = set_smem(wide_decode_kernel)) return e;
-  if (F > 0) {
-    wide_decode_kernel<<<F, LANES, STAGE_WORDS * sizeof(uint32_t), (cudaStream_t)stream>>>(
-        a, (const int*)lits, (uint8_t*)out);
   }
   return zk_last_error();
 }

@@ -15,12 +15,16 @@ the frame bad.
 Inputs per KIND_SEQ record: a row of the (nw, WB) bitstream word table,
 three rows of the deduped (Tp, 512) decode-table pool (symbol |
 nb_bits << 8 | baseline << 16), and the ll/ml code base+bits constants
-(4, 64).
+(4, 64). A row index outside its table reads the table's last row, as
+the reference kernels' index maps do.
 
 The wide contract (this module): literals one int32 per byte
 (F, LROWS, 128), output bytes (F, OUTB/128, 128). Its literal clamp is
 the reference's staging window (LITB + 128 bytes from the 128-byte row
-holding the record's first literal).
+holding the record's first literal). On the card it runs in three stages
+(``csrc/wide_decode.cu``): an FSE pass per record, a scan per frame that
+writes one descriptor per output byte, and pointer jumping over the
+descriptors.
 """
 
 from __future__ import annotations
@@ -142,6 +146,12 @@ def _window_read(ws4, wbase, rem, n):
     return v & ((1 << min(n, 31)) - 1)
 
 
+def _row(i: int, n: int) -> int:
+    """A meta row index outside [0, n) reads row n - 1, as the kernels
+    (and the reference kernels' index maps) take it."""
+    return i if 0 <= i < n else n - 1
+
+
 def _padded(buf, start, n):
     piece = bytes(buf[start:start + n])
     return piece + bytes(n - len(piece))
@@ -181,8 +191,9 @@ def decode_plain(consts, meta, words, tables, lit_pools, OUTB: int, ring: bool,
             lit_row0 = min(litcur0 // 128, LROWS - LRWS)
             lit_lim = lit_row0 * 128 + LITB + 128
         if kind == KIND_SEQ:
-            wrow = wtab_np[m[M_WROW]].tolist()
-            tll, tof, tml = (tab[m[k]].tolist() for k in (M_TLL, M_TOF, M_TML))
+            wrow = wtab_np[_row(m[M_WROW], len(wtab_np))].tolist()
+            tll, tof, tml = (tab[_row(m[k], len(tab))].tolist()
+                             for k in (M_TLL, M_TOF, M_TML))
             logs = m[M_LOGS]
             rem = m[M_STARTBIT]
             ll_s = _read_bits(wrow, WB, rem, logs & 31)
@@ -249,7 +260,9 @@ def decode_plain(consts, meta, words, tables, lit_pools, OUTB: int, ring: bool,
                     safe_off = min(max(off, 1), max(mpos, 1))
                 if ml_w > 0:
                     src = mpos - safe_off
-                    if safe_off >= ml_w:
+                    if src < 0:  # mpos == 0: bytes before the row read 0
+                        out[mpos:mpos + ml_w] = bytes(ml_w)
+                    elif safe_off >= ml_w:
                         out[mpos:mpos + ml_w] = out[src:src + ml_w]
                     else:
                         period = bytes(out[src:mpos])
@@ -298,27 +311,76 @@ def wide_plain(consts, meta, words, tables, lits, OUTB: int, LITB: int):
     return torch.from_numpy(out.copy()).to(dev), torch.from_numpy(meta_out).to(dev)
 
 
+def wide_stages(consts, meta, words, tables, lits, *, OUTB: int, LITB: int):
+    """Allocate the outputs and scratch of the CUDA wide decoder for these
+    CUDA inputs (see ``wide_decode``). Returns (out, meta_out, stages):
+    ``stages`` are ("fse", "scan", "resolve") launch functions, to run in
+    that order on the current stream; each raises if its launcher reports
+    an error. Reads the total sequence count back from the card once."""
+    for name, t in (("consts", consts), ("meta", meta), ("words", words),
+                    ("tables", tables), ("lits", lits)):
+        check_cuda(name, t)
+    F, LROWS = lits.shape[0], lits.shape[1]
+    nrecp = meta.numel() // META_COLS
+    nw, WB = words.shape[0], words.numel() // max(words.shape[0], 1)
+    if OUTB <= 0 or OUTB % 128 or LITB < 0 or LITB % 128:
+        raise ValueError("OUTB must be a positive multiple of 128, LITB a multiple of 128")
+    if nw < 1 or WB < 2 or tables.numel() < 512 or nrecp < 1:
+        raise ValueError("words needs a row of >= 2 words, tables and meta a row each")
+    if LROWS * 128 + LITB + 256 >= 1 << 31:
+        raise ValueError("literal pool too large for int32 descriptors")
+    dev = lits.device
+    m = meta.reshape(nrecp, META_COLS)
+    nseq = torch.where(m[:, M_KIND] == KIND_SEQ, m[:, M_NSEQ].clamp(min=0), 0).to(torch.int64)
+    ends = torch.cumsum(nseq, 0)
+    total = int(ends[-1])
+    if total >= 1 << 31:
+        raise ValueError(f"{total} sequences: too many for int32 offsets")
+    seq_off = (ends - nseq).to(torch.int32)
+    lls, mls, ofvs = (torch.empty(max(total, 1), dtype=torch.int32, device=dev)
+                      for _ in range(3))
+    rems = torch.empty(nrecp, dtype=torch.int32, device=dev)
+    # Descriptors: every byte starts as the terminal 0 (-1); the second
+    # buffer is written whole by the first jump round.
+    desc_a = torch.full((F * OUTB,), -1, dtype=torch.int32, device=dev)
+    desc_b = torch.empty(F * OUTB, dtype=torch.int32, device=dev)
+    out = torch.empty((F, OUTB // 128, 128), dtype=torch.uint8, device=dev)
+    meta_out = torch.zeros((F, 128), dtype=torch.int32, device=dev)
+
+    def fse():
+        fn = kernel_fn("zk_wide_fse_launch", [P, P, I, P, I, I, P, I, P, P, P, P, P, P])
+        check_rc("wide_decode (fse)", fn(
+            ptr(consts), ptr(meta), nrecp, ptr(words), nw, WB, ptr(tables),
+            tables.numel() // 512, ptr(seq_off), ptr(lls), ptr(mls), ptr(ofvs), ptr(rems),
+            stream()))
+
+    def scan():
+        fn = kernel_fn("zk_wide_scan_launch", [P, I, P, P, P, P, P, I, I, I, I, P, P, P])
+        check_rc("wide_decode (scan)", fn(
+            ptr(meta), nrecp, ptr(seq_off), ptr(rems), ptr(lls), ptr(mls), ptr(ofvs),
+            F, OUTB, LITB, LROWS, ptr(desc_a), ptr(meta_out), stream()))
+
+    def resolve():
+        fn = kernel_fn("zk_wide_resolve_launch", [P, P, P, I, I, I, P, P])
+        check_rc("wide_decode (resolve)", fn(
+            ptr(desc_a), ptr(desc_b), ptr(lits), F, LROWS, OUTB, ptr(out), stream()))
+
+    return out, meta_out, (("fse", fse), ("scan", scan), ("resolve", resolve))
+
+
 def wide_decode(consts, meta, words, tables, lits, *, OUTB: int, LITB: int):
     """Decode every frame (any declared window). consts int32[4, 64], meta
     int32[NRECP, META_COLS], words int32[nw, WB], tables int32[Tp, 512],
     lits int32[F, LROWS, 128] (one literal byte per int). Returns (out
     uint8[F, OUTB/128, 128], meta_out int32[F, 128] = total, bad flag,
-    literals used); output bytes are exact up to the total."""
+    literals used); output bytes are exact up to the total. Records are
+    frame-major with a frame's F_FRAME_START on its first record
+    (``build_records``)."""
     if lits.device.type == "cpu":
         return wide_plain(consts, meta, words, tables, lits, OUTB, LITB)
-    for name, t in (("consts", consts), ("meta", meta), ("words", words),
-                    ("tables", tables), ("lits", lits)):
-        check_cuda(name, t)
-    F, LROWS = lits.shape[0], lits.shape[1]
-    dev = lits.device
-    out = torch.zeros((F, OUTB // 128, 128), dtype=torch.uint8, device=dev)
-    meta_out = torch.zeros((F, 128), dtype=torch.int32, device=dev)
-    fn = kernel_fn("zk_wide_decode_launch",
-                   [P, P, I, P, I, I, P, I, P, I, I, I, I, P, P, P])
-    rc = fn(ptr(consts), ptr(meta), meta.numel() // META_COLS, ptr(words),
-            words.shape[0], words.numel() // words.shape[0], ptr(tables),
-            tables.numel() // 512, ptr(lits), F, LROWS, OUTB, LITB,
-            ptr(out), ptr(meta_out), stream())
+    out, meta_out, stages = wide_stages(consts, meta, words, tables, lits,
+                                        OUTB=OUTB, LITB=LITB)
+    for _name, launch in stages:
+        launch()
     launches["wide_decode"] += 1
-    check_rc("wide_decode", rc)
     return out, meta_out
