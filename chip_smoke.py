@@ -11,7 +11,10 @@ Phases (any failure raises; nothing is caught):
                bytes, overlapping "abc" repeats) through the pipeline on
                the card; every kernel's output on the inputs it was given
                must equal its plain PyTorch version exactly over the
-               valid regions.
+               valid regions, and the level-1 archive the CPU port's
+               byte for byte; the match kernel also on one edge input of
+               tests/match_edges.py (1 MiB of text whose lazy probes and
+               interior inserts share hash slots).
   2b. levels - the 256 KiB input at level 3 (32 KiB frames) and at level
                19 with a 64 KiB prefix, through the parallel parse: every
                reachability and FSE kernel call on the card equals its
@@ -19,16 +22,20 @@ Phases (any failure raises; nothing is caught):
                archive of the same input, and every frame decodes back.
   3. main    - 10 MiB of dickens-like text (a copy of bench.py's
                build_corpus, seeded), 1 MiB frames, level 1, checksums on:
-               encode, Foot seek table, parse it back, decode on the ring
-               route and on the wide route, decode frames 3-5, and a
-               one-bit corruption that must never decode to wrong bytes.
+               encode (the archive must equal the CPU port's), Foot seek
+               table, parse it back, decode on the ring route and on the
+               wide route, decode frames 3-5, and a one-bit corruption
+               that must never decode to wrong bytes.
                The match, FSE, ring and wide kernels must have launched.
   4. timing  - 5 warm runs of encode and decode (checksums off, input
                staged, output left on the card): median and spread in
                MiB/s; the fenced phase split; every kernel's CUDA-event
                time at the main path's shapes beside its memory bound
                (bytes read + written over 3.35 TB/s) and its plain
-               version's time on the same inputs.
+               version's time on the same inputs; for the match kernel
+               the sequences per launch and the ns and cycles per
+               sequence of one frame's chain at the SM clock nvidia-smi
+               reads while the kernel runs ([timing] match).
   3b. level 3 - the same 10 MiB text, 1 MiB frames, level 3 (the CLI's
                default), checksums on: encode, Foot seek table, decode
                (the 1 MiB windows take the wide route), frames 3-5, the
@@ -347,6 +354,41 @@ def moved_bytes(name, a, result, m):
     out, mo = result
     return (words_used + nlit * per_lit + tables.numel() * 4 + meta.numel() * 4
             + consts.numel() * 4 + int(mo[:, 0].to(torch.int64).sum()) + mo.numel() * 4)
+
+
+def check_match_edge(mods, dev):
+    """Phase 2 (edge input): the match kernel against its plain version on
+    the ``collide`` input of tests/match_edges.py at 1 MiB. Returns the
+    max abs error (raises unless 0)."""
+    from tests import match_edges
+
+    rows, lengths, BLK, SBd = match_edges.edge_case("collide", MIB)
+    meta, words = match_edges.match_inputs(rows, lengths, BLK)
+    a = [torch.from_numpy(x).to(dev) for x in (mods.fk.make_consts(), meta, words)]
+    return compare("match", a, dict(BLK=BLK, SBd=SBd, n_frames=rows.shape[0]), mods)[0]
+
+
+def match_timing(mk, a, k, ms):
+    """The [timing] match line: sequences per launch (from the stat rows),
+    ms per launch, and ns and cycles per sequence of one frame's chain
+    (frames parse in parallel) at the SM clock nvidia-smi reads while five
+    more launches run."""
+    for _ in range(5):
+        stat = mk.match(*a, **k)[3]
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+    torch.cuda.synchronize()
+    mhz, max_mhz = (float(x) for x in smi.split(","))
+    nseq = int(stat[:, mk.ST_NSEQ].sum())
+    per_frame = nseq / k["n_frames"]
+    ns = ms * 1e6 / per_frame
+    log(f"[timing] match: {nseq} sequences per launch ({per_frame:.1f} per frame, "
+        f"{k['n_frames']} frames in parallel), {ms:.4f} ms per launch, {ns:.2f} ns and "
+        f"{ns * mhz / 1e3:.1f} cycles per sequence at {mhz:.0f} MHz (SM clock under load; "
+        f"max {max_mhz:.0f} MHz)")
+    return dict(sequences=nseq, per_frame=per_frame, ms=ms, ns_per_seq=ns,
+                cycles_per_seq=ns * mhz / 1e3, sm_mhz=mhz, max_sm_mhz=max_mhz)
 
 
 def cuda_ms(fn, reps):
@@ -675,6 +717,12 @@ def main():
         small_err[name] = err
         log(f"[kernels] {name}: equal to its plain version on the 256 KiB input "
             f"({len(calls)} call(s), max abs err {err})")
+    small_err["match"] = max(small_err["match"], check_match_edge(mods, dev))
+    log("[kernels] match: equal to its plain version on the 1 MiB slot-collision edge input")
+    cpu_blob, _ = zt.compress_archive(small, frame_size=96 << 10, level=1, checksum=True,
+                                      device="cpu")
+    assert blob_s == cpu_blob, "level 1: card archive differs from CPU archive"
+    log("[kernels] level 1: the card's archive of the 256 KiB input equals the CPU port's")
 
     # --- 2b. the parallel parse against the plain versions ---------------
     with Recorder() as rec_b:
@@ -738,8 +786,12 @@ def main():
             corrupt = f"error ({type(e).__name__}: {e})"
         assert corrupt != "WRONG", "a corrupted archive decoded to wrong bytes"
     counts = dict(ops.launches)
+    cpu_blob, _ = zt.compress_archive(data, frame_size=MIB, level=1, checksum=True,
+                                      device="cpu")
+    assert blob == cpu_blob, "level 1: the card's 10 MiB archive differs from the CPU port's"
     log(f"[main] 10 MiB: ratio {len(blob) / n:.6f}, first encode {t_enc:.3f}s, "
-        f"first decode {t_dec:.3f}s; ring, wide and frames 3-5 exact; "
+        f"first decode {t_dec:.3f}s; archive equal to the CPU port's; ring, wide and "
+        f"frames 3-5 exact; "
         f"flipped bit -> {corrupt}")
     log(f"[main] launches: {counts}")
     for name in ("match", "fse", "ring_decode", "wide_decode"):
@@ -915,6 +967,8 @@ def main():
             extra["fse_level3"] = row
         else:
             table.append(row)
+        if name == "match":
+            extra["match_timing"] = match_timing(mods.mk, a, k, ms)
         if name == "wide_decode":
             stages = wide_stage_ms(mods.dk, a, k)
             extra["wide_stages_ms"] = stages

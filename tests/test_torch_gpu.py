@@ -22,6 +22,8 @@ from zeekstd_tpu_torch.ops import match_kernel as mk
 from zeekstd_tpu_torch.ops import reach_kernel as rch
 from zeekstd_tpu_torch.ops import ring_kernel as rk
 
+from . import match_edges
+
 pytestmark = pytest.mark.gpu
 
 
@@ -73,6 +75,24 @@ def test_match_kernel_equals_plain(calls):
     ref = mk.match_plain(*a, k["BLK"], k["SBd"])
     for got, want in zip((lm, ofv, litw, stat), ref):
         torch.testing.assert_close(got.cpu(), want.cpu(), rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("name", match_edges.NAMES)
+def test_match_kernel_equals_plain_on_edge_inputs(card, name):
+    """The match kernel on the edge inputs of ``match_edges`` (512 KiB, and
+    2 MiB for the slot collisions and the 2^19 window in an 8 MiB frame
+    row): every row equals the plain version exactly, one launch each."""
+    n = (2 << 20) if name in ("collide", "window") else (512 << 10)
+    rows, lengths, BLK, SBd = match_edges.edge_case(name, n)
+    meta, words = match_edges.match_inputs(rows, lengths, BLK)
+    args = [torch.from_numpy(x).to(card) for x in (fk.make_consts(), meta, words)]
+    before = ops.launches["match"]
+    got = mk.match(*args, BLK=BLK, SBd=SBd, n_frames=rows.shape[0])
+    assert ops.launches["match"] == before + 1
+    want = mk.match_plain(*(a.cpu() for a in args), BLK, SBd)
+    assert int(want[3][:, mk.ST_NSEQ].sum()) > 0 or name == "random"
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g.cpu(), w, rtol=0, atol=0)
 
 
 def test_fse_kernel_equals_plain(calls):

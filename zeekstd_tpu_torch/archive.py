@@ -23,6 +23,12 @@ on the route ``ZEEKSTD_TPU_EXEC`` selects (``exec_mode``):
           (``ZEEKSTD_TPU_RING=0`` forces the wide route)
   host    post-kernel checks: bad flag, literal count, content size,
           seek-table size, XXH64
+  Frames past one of the reference's fused-route guards (a prefix over
+  128 KiB, a frame bound over 4 MiB off the ring route, a block
+  bitstream over 16384 words, a raw block or literal budget over
+  128 KiB) take the serial route instead (``decompress_frame``: the
+  doubling route, the reference's classic path), counted with the
+  reference's reason in ``decode_routes.serial_fallback_count``.
 - ``serial`` or ``doubling``: device Huffman and FSE decode, then the
   serial executor kernel or pointer doubling (``decode_routes.py``).
 """
@@ -64,6 +70,10 @@ assert BLOCK_SIZE <= ZSTD_BLOCK_SIZE_MAX
 MAX_FRAME_SIZE = 8 << 20   # the match kernel's largest frame row
 WINDOW_CAP = 1 << 19       # match-kernel offsets stay inside 512 KiB
 LITB = 128 << 10           # a block's literal budget (the format's block cap)
+# The reference's fused-route guards (tpu_archive.py:2273-2362) beside
+# decode_routes.SERIAL_LITB: frames past them take the next route.
+SERIAL_OUTB_CAP = 1 << 22  # a frame's output bound off the ring route
+FUSED_WB_CAP = 16384       # words of one block's sequence bitstream
 
 
 def empty_frame(checksum: bool) -> bytes:
@@ -917,22 +927,31 @@ def decompress_archive(
         )
     with phase_timer("dec.huf_host"):
         dec_list = _huf_batch_host(lay.streams)
-    return _fused_exec_dispatch(
+    res = _fused_exec_dispatch(
         blob, plans, lay, dec_list, seek_table, verify_checksum, return_device, dev,
     )
+    if res is NotImplemented:
+        res = decode_routes.classic_decompress_archive(
+            blob, plans, lay, seek_table, verify_checksum, return_device, dev, serial=True)
+    return res
 
 
 def decode_frames(blob, spans, verify_checksum: bool = True, device=None):
     """Seekable random access: decode the frames at byte spans
-    [(start, end), ...] of ``blob`` in one kernel launch; returns a list
-    of bytes, one per span."""
+    [(start, end), ...] of ``blob`` in one kernel launch (the serial route
+    past a fused-route guard); returns a list of bytes, one per span."""
     dev = resolve_device(device)
     plans = [_plan_frame(blob, s) for s, _e in spans]
     lay = plan_mod.collect(plans)
     dec_list = _huf_batch_host(lay.streams)
-    return _fused_exec_dispatch(
+    res = _fused_exec_dispatch(
         blob, plans, lay, dec_list, None, verify_checksum, False, dev, return_parts=True,
     )
+    if res is NotImplemented:
+        res = decode_routes.classic_decompress_archive(
+            blob, plans, lay, None, verify_checksum, False, dev, serial=True,
+            return_parts=True)
+    return res
 
 
 def decompress_frame(frame: bytes, pos: int = 0, verify_checksum: bool = True,
@@ -941,22 +960,23 @@ def decompress_frame(frame: bytes, pos: int = 0, verify_checksum: bool = True,
     end_pos). ``prefix`` is zstd's ref_prefix: match offsets may reach
     before the frame into it (patch mode). The fused route by default;
     under ``ZEEKSTD_TPU_EXEC=serial`` or ``doubling`` the classic path
-    (device Huffman and FSE decode, pointer doubling)."""
+    (device Huffman and FSE decode, pointer doubling), which also takes
+    the frames past a fused-route guard."""
     dev = resolve_device(device)
     hdr, plan, fpos = _plan_frame(frame, pos)
     plans = [(hdr, plan, fpos)]
     lay = plan_mod.collect(plans)
-    if exec_mode() != "fused":
-        # The classic path: the doubling route over this one frame.
-        out = decode_routes.classic_decompress_archive(
-            frame, plans, lay, None, verify_checksum, False, dev,
-            prefixes=[prefix] if prefix else None)
-    else:
+    prefixes = [prefix] if prefix else None
+    out = NotImplemented
+    if exec_mode() == "fused":
         dec_list = _huf_batch_host(lay.streams)
         out = _fused_exec_dispatch(
-            frame, plans, lay, dec_list, None, verify_checksum, False, dev,
-            prefixes=[prefix] if prefix else None,
+            frame, plans, lay, dec_list, None, verify_checksum, False, dev, prefixes=prefixes,
         )
+    if out is NotImplemented:
+        # The classic path: the doubling route over this one frame.
+        out = decode_routes.classic_decompress_archive(
+            frame, plans, lay, None, verify_checksum, False, dev, prefixes=prefixes)
     return out, fpos + (4 if hdr.has_checksum else 0)
 
 
@@ -1023,26 +1043,33 @@ def _fused_exec_dispatch(
     blob, plans, lay, dec_list, seek_table,
     verify_checksum, return_device, dev, return_parts=False, prefixes=None,
 ):
-    """Decode every planned frame with one fused-kernel launch.
+    """Decode every planned frame with one fused-kernel launch, or return
+    NotImplemented (counted, with the reference's reason) when a
+    fused-route guard rules the frames out.
 
     ``dec_list``: host-decoded Huffman literal streams in plan order;
     each frame's literal pool is assembled on the host and staged once.
 
-    ``prefixes``: optional per-frame ref_prefix bytes. Each rides as
-    leading literal records (at most LITB bytes each, the wide route's
-    literal window) that match offsets reach into, and is sliced off the
-    output."""
+    ``prefixes``: optional per-frame ref_prefix bytes. Each rides as a
+    leading literal record that match offsets reach into, and is sliced
+    off the output."""
     F = len(plans)
     plens = [len(p) if p else 0 for p in prefixes] if prefixes else [0] * F
     if any(plens) and return_device:
         raise ValueError("prefixes cannot combine with return_device")
+    if max(plens) > decode_routes.SERIAL_LITB:
+        return decode_routes.count_fallback("prefix over literal budget")
     bounds = [b + plen for b, plen in zip(plan_mod.frame_bounds(plans, seek_table), plens)]
     max_bound = max(bounds)
     use_ring = use_ring_route(plans, max_bound, plens)
+    if not use_ring and max_bound > SERIAL_OUTB_CAP:
+        return decode_routes.count_fallback(f"frame bound {max_bound} over cap")
 
     with phase_timer("dec.fused_layout"):
         if lay.seq_blocks:
-            words, starts, tidx, packed, logs_t, _wb = plan_mod.fse_stage(lay.seq_blocks)
+            words, starts, tidx, packed, logs_t, wb = plan_mod.fse_stage(lay.seq_blocks)
+            if wb > FUSED_WB_CAP:
+                return decode_routes.count_fallback("bitstream over SMEM cap")
         else:
             words = np.zeros((2, 16), np.uint32)
             starts = np.zeros(2, np.int32)
@@ -1057,15 +1084,17 @@ def _fused_exec_dispatch(
             blocks = []
             if plens[fi]:
                 pool_parts[fi].append(np.frombuffer(prefixes[fi], np.uint8))
-                blocks += [("lit", min(LITB, plens[fi] - o))
-                           for o in range(0, plens[fi], LITB)]
-            for blk in fblocks:
+                blocks.append(("lit", plens[fi]))
+            for (kind, *_args), blk in zip(plans[fi][1], fblocks):
                 if blk[0] == "rle":
                     blocks.append(blk)
                     continue
+                chunk_len = plan_mod.seg_len(blk[1])
+                if chunk_len > decode_routes.SERIAL_LITB:
+                    return decode_routes.count_fallback(
+                        "oversize raw block" if kind == "raw" else "oversize literal budget")
                 for static, src, n in blk[1]:
                     pool_parts[fi].append(static_np[src : src + n] if static else dec_list[src])
-                chunk_len = plan_mod.seg_len(blk[1])
                 if blk[0] == "lit":
                     blocks.append(("lit", chunk_len))
                     continue

@@ -48,13 +48,21 @@ from .ops import exec_kernel as ek
 
 SERIAL_LITB = 128 << 10  # literal window per record (>= any block's budget)
 
-# Observability: archives that fell off the serial executor to the doubling
-# route.
-_serial_fallbacks = {"count": 0}
+# Observability: decodes that fell off the fused route (archive.py's
+# guards) or off the serial executor, and the last one's reason (the
+# reference's strings).
+_serial_fallbacks = {"count": 0, "reason": ""}
 
 
 def serial_fallback_count() -> int:
     return _serial_fallbacks["count"]
+
+
+def count_fallback(reason: str):
+    """Count one fallback to the next route; returns NotImplemented."""
+    _serial_fallbacks["count"] += 1
+    _serial_fallbacks["reason"] = reason
+    return NotImplemented
 
 
 def _pow2(n: int, floor_log: int) -> int:
@@ -169,11 +177,13 @@ def _gather_lits(lit_dest, lit_base, nlit_f, size, static_np, dec_streams, dev):
 
 
 def classic_decompress_archive(blob, plans, lay, seek_table, verify_checksum, return_device,
-                               dev, serial: bool = False, prefixes=None):
+                               dev, serial: bool = False, prefixes=None,
+                               return_parts: bool = False):
     """Decode planned frames (``lay``: their ``plan.Layout``) on the serial
     (``serial=True``) or the doubling route. ``prefixes``: optional
     per-frame ref_prefix bytes (doubling route only), each a leading
-    literal run that match offsets reach into, sliced off the output."""
+    literal run that match offsets reach into, sliced off the output.
+    ``return_parts``: a list of bytes per frame instead of their join."""
     with phase_timer("dec.huf_batch") as pt:
         dec_streams, huf_out_bound = _huf_batch_dev(lay.streams, dev)
         pt.fence(dec_streams)
@@ -181,17 +191,18 @@ def classic_decompress_archive(blob, plans, lay, seek_table, verify_checksum, re
         lls_b, mls_b, offs_b, ofvs_b, hasrep_dev, seq_bound = _fse_batch_dev(
             lay.seq_blocks, dev)
         pt2.fence(lls_b)
+    res = NotImplemented
     if serial:
         res = _serial_exec_dispatch(
             blob, plans, lay, lls_b, mls_b, ofvs_b, seq_bound, dec_streams, huf_out_bound,
             seek_table, verify_checksum, return_device, dev,
         )
-        if res is not NotImplemented:
-            return res
-    return _doubling_dispatch(
-        blob, plans, lay, lls_b, mls_b, offs_b, ofvs_b, hasrep_dev, seq_bound, dec_streams,
-        huf_out_bound, verify_checksum, return_device, dev, prefixes,
-    )
+    if res is NotImplemented:
+        res = _doubling_dispatch(
+            blob, plans, lay, lls_b, mls_b, offs_b, ofvs_b, hasrep_dev, seq_bound, dec_streams,
+            huf_out_bound, verify_checksum, return_device, dev, prefixes,
+        )
+    return res if return_device or return_parts else b"".join(res)
 
 
 # ---------------------------------------------------------- serial route ---
@@ -226,7 +237,7 @@ def _serial_layout(lay, sbd: int, rpb: int):
 def _serial_exec_dispatch(blob, plans, lay, lls_b, mls_b, ofvs_b, seq_bound, dec_streams,
                           huf_out_bound, seek_table, verify_checksum, return_device, dev):
     """Decode every planned frame through the serial executor. Returns the
-    archive bytes / (device rows, sizes), or NotImplemented when the
+    frames' bytes / (device rows, sizes), or NotImplemented when the
     literal-window guard rules this archive out (counted). The reference's
     4 MiB VMEM ceiling on a frame's output does not apply on the card."""
     F = len(plans)
@@ -237,8 +248,7 @@ def _serial_exec_dispatch(blob, plans, lay, lls_b, mls_b, ofvs_b, seq_bound, dec
     with phase_timer("dec.serial_layout"):
         meta = _serial_layout(lay, SBd, rpb)
         if meta is None:
-            _serial_fallbacks["count"] += 1
-            return NotImplemented
+            return count_fallback("oversize block literal budget")
         frame_segs = [_literal_segs(fb) for fb in lay.blocks]
         LITB = SERIAL_LITB
         LRWS = LITB // 128 + 1
@@ -283,7 +293,7 @@ def _serial_exec_dispatch(blob, plans, lay, lls_b, mls_b, ofvs_b, seq_bound, dec
             if verify_checksum:
                 plan_mod.check_checksum(blob, hdr, cpos, result)
             parts.append(result)
-    return b"".join(parts)
+    return parts
 
 
 # -------------------------------------------------------- doubling route ---
@@ -519,4 +529,4 @@ def _doubling_dispatch(blob, plans, lay, lls_b, mls_b, offs_b, ofvs_b, hasrep_de
                 parts.append(result)
     if return_device:
         return out_dev, [int(t) for t in checks[:, 0]]
-    return b"".join(parts)
+    return parts

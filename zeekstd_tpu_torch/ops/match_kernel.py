@@ -18,9 +18,9 @@ across the blocks of a frame.
 
 The TPU kernel walks every record in order on one core with one hash
 table. Here each frame owns its table (the CUDA kernel runs one thread
-block per frame): the two agree because a hash hit is only accepted when
-its tag is at least ``frame_base + window_low``, which no entry from an
-earlier frame can be.
+block per frame, one warp carrying its serial parse): the two agree
+because a hash hit is only accepted when its tag is at least
+``frame_base + window_low``, which no entry from an earlier frame can be.
 """
 
 from __future__ import annotations
@@ -285,6 +285,8 @@ def match(consts, meta, words, *, BLK: int, SBd: int, n_frames: int):
         return match_plain(consts, meta, words, BLK, SBd)
     for name, t in (("consts", consts), ("meta", meta), ("words", words)):
         check_cuda(name, t)
+    if words.data_ptr() % 16:
+        raise ValueError("words must be 16-byte aligned (the kernel stages it with cp.async)")
     nrecp = meta.numel() // META_COLS
     dev = words.device
     lm = torch.zeros((nrecp, SBd), dtype=torch.int32, device=dev)
