@@ -35,7 +35,9 @@ Phases (any failure raises; nothing is caught):
                version's time on the same inputs; for the match kernel
                the sequences per launch and the ns and cycles per
                sequence of one frame's chain at the SM clock nvidia-smi
-               reads while the kernel runs ([timing] match).
+               reads while the kernel runs ([timing] match); the ring
+               decoder's three stages (FSE pass, scan, pointer jumping)
+               timed apart on the level-1 decode's inputs.
   3b. level 3 - the same 10 MiB text, 1 MiB frames, level 3 (the CLI's
                default), checksums on: encode, Foot seek table, decode
                (the 1 MiB windows take the wide route), frames 3-5, the
@@ -414,11 +416,12 @@ def time_kernel(name, a, k, m, reps=5):
     return cuda_ms(lambda: fn(*a, **k), reps)
 
 
-def wide_stage_ms(dk, a, k, reps=5):
-    """Mean CUDA-event milliseconds of each stage of the wide decoder on one
+def stage_ms(stages_fn, a, k, reps=5):
+    """Mean CUDA-event milliseconds of each stage of a three-stage decoder
+    (``decode_kernel.wide_stages`` or ``ring_kernel.ring_stages``) on one
     call's inputs, over ``reps`` runs after a warm one (stage launches made
     here are not counted)."""
-    _out, _mo, stages = dk.wide_stages(*a, **k)
+    _out, _mo, stages = stages_fn(*a, **k)
     for _name, launch in stages:
         launch()
     torch.cuda.synchronize()
@@ -915,7 +918,8 @@ def main():
         "reach_mark": ("zeekstd_tpu_torch/csrc/reach_kernel.cu",
                        "zeekstd_tpu/ops/pallas_kernels.py:181"),
         "fse": ("zeekstd_tpu_torch/csrc/fse_kernel.cu", "zeekstd_tpu/ops/fse_kernel.py:280"),
-        "ring_decode": ("zeekstd_tpu_torch/csrc/fused_decode.cu", "zeekstd_tpu/ops/ring_kernel.py:541"),
+        "ring_decode": ("zeekstd_tpu_torch/csrc/wide_decode.cu",
+                        "zeekstd_tpu/ops/ring_kernel.py:541"),
         "wide_decode": ("zeekstd_tpu_torch/csrc/wide_decode.cu", "zeekstd_tpu/ops/decode_kernel.py:388"),
         "exec": ("zeekstd_tpu_torch/csrc/exec_kernel.cu", "zeekstd_tpu/ops/exec_kernel.py:372"),
         "fse_decode": ("zeekstd_tpu_torch/csrc/fse_decode.cu",
@@ -969,10 +973,11 @@ def main():
             table.append(row)
         if name == "match":
             extra["match_timing"] = match_timing(mods.mk, a, k, ms)
-        if name == "wide_decode":
-            stages = wide_stage_ms(mods.dk, a, k)
-            extra["wide_stages_ms"] = stages
-            log(f"[timing] wide_decode stages (phase 3b shapes, F={a[4].shape[0]}, "
+        if name in ("wide_decode", "ring_decode"):
+            wide = name == "wide_decode"
+            stages = stage_ms(mods.dk.wide_stages if wide else mods.rk.ring_stages, a, k)
+            extra[f"{name.split('_')[0]}_stages_ms"] = stages
+            log(f"[timing] {name} stages (phase {path} shapes, F={a[4].shape[0]}, "
                 f"OUTB={k['OUTB']}): " + ", ".join(f"{n} {t:.4f} ms" for n, t in stages.items()))
         lib = f", library {lib_ms:.4f} ms" if lib_ms is not None else ""
         log(f"[timing] {name} (phase {path} shapes): {ms:.4f} ms/launch, bound "

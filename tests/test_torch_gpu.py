@@ -12,7 +12,7 @@ import pytest
 import torch
 
 import zeekstd_tpu_torch as zt
-from zeekstd_tpu_torch import ops
+from zeekstd_tpu_torch import decode_routes, ops, plan
 from zeekstd_tpu_torch.ops import byte_kernels as bk
 from zeekstd_tpu_torch.ops import decode_kernel as dk
 from zeekstd_tpu_torch.ops import entropy
@@ -22,7 +22,7 @@ from zeekstd_tpu_torch.ops import match_kernel as mk
 from zeekstd_tpu_torch.ops import reach_kernel as rch
 from zeekstd_tpu_torch.ops import ring_kernel as rk
 
-from . import match_edges
+from . import launch_cases, match_edges, ring_cases
 
 pytestmark = pytest.mark.gpu
 
@@ -172,19 +172,48 @@ def test_wide_decode_equals_plain_on_mutations(calls, i):
     _wide_equals_plain(_fused_mutation(i, a), k)
 
 
-@pytest.mark.parametrize("i", range(11, 16))
-def test_ring_decode_equals_plain_on_row_and_bit_mutations(calls, i):
-    """Table rows outside the pool and flipped bits on the ring route."""
-    (a, k), = calls["ring"]
-    a = _fused_mutation(i, a)
-    out, mo = rk.ring_decode(*a, **k)
-    out0, mo0 = rk.ring_plain(*(t.cpu() for t in a), k["OUTB"])
+def _ring_equals_plain(a, OUTB):
+    """The CUDA ring decoder (one launch of its three stages) on ``a``
+    equals ring_plain exactly: meta_out columns 0-2 and each frame's bytes
+    up to its total. Returns meta_out."""
+    before = ops.launches["ring_decode"]
+    out, mo = rk.ring_decode(*a, OUTB=OUTB)
+    assert ops.launches["ring_decode"] == before + 1
+    out0, mo0 = rk.ring_plain(*(t.cpu() for t in a), OUTB)
     assert torch.equal(mo[:, :3].cpu(), mo0[:, :3])
     F = mo.shape[0]
     ob = out.cpu().numpy().view(np.uint8).reshape(F, -1)
     ob0 = out0.numpy().view(np.uint8).reshape(F, -1)
     for f, tot in enumerate(mo0[:, 0].tolist()):
         np.testing.assert_array_equal(ob[f, :tot], ob0[f, :tot])
+    return mo0
+
+
+@pytest.mark.parametrize("i", range(16))
+def test_ring_decode_equals_plain_on_mutations(calls, i):
+    """The 16 mutations of the wide route's test on the ring route: record
+    counts, start bits, literal budgets, table logs, table rows outside the
+    pool and flipped bits."""
+    (a, k), = calls["ring"]
+    _ring_equals_plain(_fused_mutation(i, a), k["OUTB"])
+
+
+@pytest.mark.parametrize("name", ring_cases.NAMES)
+def test_ring_decode_equals_plain_on_hand_built_records(card, name):
+    """The places where the ring contract differs from the wide one
+    (``ring_cases``): offsets over 512 KiB in a frame longer than 512 KiB,
+    literal runs past their block's budget, sequences that read below their
+    four-word window, a match at position 0."""
+    arrays, OUTB = ring_cases.ring_case(name)
+    mo0 = _ring_equals_plain([torch.from_numpy(x).to(card) for x in arrays], OUTB)
+    assert mo0[:, 1].any()
+
+
+@pytest.mark.parametrize("OUTB", [4096, 640])
+def test_ring_decode_output_smaller_than_frames(calls, OUTB):
+    (a, _k), = calls["ring"]
+    mo0 = _ring_equals_plain(a, OUTB)
+    assert (mo0[:, 0] == OUTB).all() and mo0[:, 1].all()
 
 
 def _hand_wide(card, frames, pools, OUTB, tabs=None, words=None):
@@ -234,6 +263,102 @@ def test_wide_decode_output_smaller_than_frames(calls, OUTB):
     (a, k), = calls["wide"]
     mo0 = _wide_equals_plain(a, dict(k, OUTB=OUTB))
     assert (mo0[:, 0] == OUTB).all() and mo0[:, 1].all()
+
+
+def _watch_group_memory(monkeypatch, records_mod):
+    """Per launch group, the device bytes allocated at its peak beyond those
+    allocated when it began (its ``records_mod.build_records`` call).
+    Returns (peaks, close): ``close()`` ends the last group."""
+    peaks, base = [], []
+    orig = records_mod.build_records
+
+    def close():
+        if len(base) > len(peaks):
+            peaks.append(torch.cuda.max_memory_allocated() - base[-1])
+
+    def build(*a, **k):
+        close()
+        base.append(torch.cuda.memory_allocated())
+        torch.cuda.reset_peak_memory_stats()
+        return orig(*a, **k)
+
+    monkeypatch.setattr(records_mod, "build_records", build)
+    return peaks, close
+
+
+def _groups_within_counts(watched, peaks):
+    """The one ``plan.launch_groups`` call's groups, each of which stayed
+    within its ``launch_bytes`` count, and within ``plan.LAUNCH_BYTES``
+    unless it is one frame."""
+    (args, groups), = watched
+    costs = launch_cases.group_costs(args, groups)
+    assert len(peaks) == len(groups)
+    for (lo, hi), peak, cost in zip(groups, peaks, costs):
+        assert peak <= cost, (groups, peaks, costs)
+        assert hi - lo == 1 or cost <= plan.LAUNCH_BYTES
+    return args, groups, peaks, costs
+
+
+@pytest.mark.parametrize("route", list(launch_cases.ROUTES))
+def test_routes_decode_in_launch_groups(card, route, monkeypatch):
+    """The uneven archive of the CPU launch-group tests on each route with
+    ``plan.LAUNCH_BYTES`` small: one launch per group, each group's device
+    bytes within its count, and the bytes of one group."""
+    env, _wrapper, key, budget = launch_cases.ROUTES[route]
+    for k, v in env.items():
+        monkeypatch.setenv(k, v)
+    blob, st, data, _spans = launch_cases.uneven("cpu")
+
+    def rows():
+        out, sizes = zt.decompress_archive(blob, st, return_device=True, device=card)
+        return [out[i, :n].cpu().numpy().tobytes() for i, n in enumerate(sizes)]
+
+    one = rows()
+    monkeypatch.setattr(plan, "LAUNCH_BYTES", budget)
+    watched = launch_cases.watch_groups(monkeypatch)
+    peaks, close = _watch_group_memory(monkeypatch, ek if route == "serial" else dk)
+    ops.reset_launches()
+    assert zt.decompress_archive(blob, st, device=card) == data
+    close()
+    _args, groups, peaks, costs = _groups_within_counts(watched, peaks)
+    assert len(groups) >= 2 and any(hi - lo >= 2 for lo, hi in groups), groups
+    assert ops.launches[key] == len(groups)
+    print(f"{route} launch groups {groups}: peak device bytes {peaks}, counted {costs}")
+    assert rows() == one and b"".join(one) == data
+
+
+def test_uneven_archive_decodes_in_launch_groups(card, monkeypatch):
+    """One 48 MiB frame of random bytes (level 3: a 2 MiB window and a bound
+    over 4 MiB, so the serial route) among 300 frames of 64 KiB of text,
+    encoded apart and joined under one seek table. Laid out at the largest
+    frame in one launch the serial route would need far more than the
+    card's 80 GB; in launch groups it decodes exactly, each group within
+    its count of device bytes."""
+    rng = np.random.default_rng(48)
+    big = rng.integers(0, 256, 48 << 20, dtype=np.uint8).tobytes()
+    small = [_data(150 << 16), _data(150 << 16)[::-1]]
+    parts = [zt.compress_archive(x, frame_size=n, level=3, checksum=True, device=card)
+             for x, n in ((small[0], 1 << 16), (big, len(big)), (small[1], 1 << 16))]
+    st = zt.SeekTable()
+    for _blob, part_st in parts:
+        for i in range(part_st.num_frames):
+            st.log_frame(part_st.frame_size_comp(i), part_st.frame_size_decomp(i))
+    blob, data = b"".join(b for b, _st in parts), small[0] + big + small[1]
+    assert st.num_frames == 301
+    watched = launch_cases.watch_groups(monkeypatch)
+    peaks, close = _watch_group_memory(monkeypatch, ek)
+    ops.reset_launches()
+    fallbacks = decode_routes.serial_fallback_count()
+    assert zt.decompress_archive(blob, st, device=card) == data
+    close()
+    assert decode_routes.serial_fallback_count() == fallbacks + 1  # the fused bound guard
+    assert decode_routes._serial_fallbacks["reason"].startswith("frame bound")
+    args, groups, peaks, costs = _groups_within_counts(watched, peaks)
+    assert len(groups) >= 2 and ops.launches["exec"] == len(groups)
+    (one_launch,) = launch_cases.group_costs(args, [(0, 301)])
+    assert one_launch > 80 << 30
+    print(f"launch groups {groups}: peak device bytes {peaks}, counted {costs}; "
+          f"one launch would count {one_launch}")
 
 
 def test_card_archives_equal_cpu_archives(card):

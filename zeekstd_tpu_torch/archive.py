@@ -17,9 +17,10 @@ Decode (``decompress_archive``, ``decode_frames``, ``decompress_frame``),
 on the route ``ZEEKSTD_TPU_EXEC`` selects (``exec_mode``):
 - unset or ``fused`` (the default; ``decode_frames`` always):
   host    plan every frame, decode the Huffman literal streams (native)
-  device  one fused kernel decodes every FSE stream and executes every
-          sequence: the ring route when every declared window (and
-          prefix) is at most 512 KiB, the wide route otherwise
+  device  the fused decoder decodes every FSE stream and executes every
+          sequence, one launch per group of frames under
+          ``plan.LAUNCH_BYTES``: the ring route when every declared window
+          (and prefix) is at most 512 KiB, the wide route otherwise
           (``ZEEKSTD_TPU_RING=0`` forces the wide route)
   host    post-kernel checks: bad flag, literal count, content size,
           seek-table size, XXH64
@@ -50,7 +51,6 @@ from .codec.compress import compress_frame
 from .codec.seq_encode import _choose_table, write_num_sequences
 from .constants import ZSTD_BLOCK_SIZE_MAX
 from .device import from_reference_arrays, phase_timer, resolve_device
-from .errors import corruption_detected
 from .native import loader
 from .ops import assemble, entropy
 from .ops import decode_kernel as dk
@@ -938,8 +938,9 @@ def decompress_archive(
 
 def decode_frames(blob, spans, verify_checksum: bool = True, device=None):
     """Seekable random access: decode the frames at byte spans
-    [(start, end), ...] of ``blob`` in one kernel launch (the serial route
-    past a fused-route guard); returns a list of bytes, one per span."""
+    [(start, end), ...] of ``blob`` on the fused route, in launch groups
+    (the serial route past a fused-route guard); returns a list of bytes,
+    one per span."""
     dev = resolve_device(device)
     plans = [_plan_frame(blob, s) for s, _e in spans]
     lay = plan_mod.collect(plans)
@@ -1010,12 +1011,32 @@ def use_ring_route(plans, max_bound: int, plens=None) -> bool:
     )
 
 
+def _outb(max_bound: int) -> int:
+    """A launch's output row: its largest frame bound rounded up to a power
+    of two, at least 4 KiB."""
+    return 1 << max((max_bound - 1).bit_length(), 12)
+
+
+def _ring_lw(nlit_max: int) -> int:
+    """Words per frame of the ring route's literal pools: the largest pool
+    and 64 bytes of slack, in 4 KiB rows."""
+    return max(-(-(nlit_max + 64) // 4096), 1) * 1024
+
+
+def _ring_launch_bytes(n, max_bound, nlit_max, n_rec, n_seq):
+    return rk.launch_bytes(n, _outb(max_bound), _ring_lw(nlit_max), n_rec, n_seq)
+
+
+def _wide_launch_bytes(n, max_bound, nlit_max, n_rec, n_seq):
+    return dk.launch_bytes(n, _outb(max_bound), decode_routes.lit_rows(nlit_max, LITB), n_rec,
+                           n_seq)
+
+
 def _ring_exec_fn(consts, meta, words, tables, pools, nlit_f, OUTB, dev):
     """Ring route: literal pools packed as LE words; output words viewed
     as bytes."""
     F = len(pools)
-    nlit_max = int(nlit_f.max()) if F else 0
-    LW = max(-(-(nlit_max + 64) // 4096), 1) * 1024
+    LW = _ring_lw(int(nlit_f.max()) if F else 0)
     litw_np = np.zeros((F, LW * 4), np.uint8)
     for fi in range(F):
         litw_np[fi, : nlit_f[fi]] = pools[fi]
@@ -1027,9 +1048,7 @@ def _ring_exec_fn(consts, meta, words, tables, pools, nlit_f, OUTB, dev):
 def _fused_exec_fn(consts, meta, words, tables, pools, nlit_f, OUTB, dev):
     """Wide route: literal pools one int32 per byte, output bytes."""
     F = len(pools)
-    nlit_max = int(nlit_f.max()) if F else 0
-    LRWS = LITB // 128 + 1
-    LROWS = 1 << max((nlit_max // 128 + LRWS).bit_length(), 1)
+    LROWS = decode_routes.lit_rows(int(nlit_f.max()) if F else 0, LITB)
     lits_np = np.zeros((F, LROWS * 128), np.uint8)
     for fi in range(F):
         lits_np[fi, : nlit_f[fi]] = pools[fi]
@@ -1043,9 +1062,15 @@ def _fused_exec_dispatch(
     blob, plans, lay, dec_list, seek_table,
     verify_checksum, return_device, dev, return_parts=False, prefixes=None,
 ):
-    """Decode every planned frame with one fused-kernel launch, or return
+    """Decode every planned frame on the fused route, or return
     NotImplemented (counted, with the reference's reason) when a
     fused-route guard rules the frames out.
+
+    The frames go in contiguous launch groups, each launch's outputs and
+    scratch within ``plan.LAUNCH_BYTES`` (one launch when all fit), each
+    group laid out at its own largest bound and pool. With
+    ``return_device`` the result is one (F, OUTB) tensor at the archive's
+    largest bound, filled group by group: only the scratch is bounded.
 
     ``dec_list``: host-decoded Huffman literal streams in plan order;
     each frame's literal pool is assembled on the host and staged once.
@@ -1110,9 +1135,6 @@ def _fused_exec_dispatch(
                     int(tidx[r, 2]), logs, int(starts[r]),
                 ))
             frames_blocks.append(blocks)
-        meta, _n_rec = dk.build_records(frames_blocks)
-
-        OUTB = 1 << max((max_bound - 1).bit_length(), 12)
         nlit_f = np.zeros(F, np.int32)
         pools = []
         for fi in range(F):
@@ -1123,40 +1145,40 @@ def _fused_exec_dispatch(
             pools.append(pool)
             nlit_f[fi] = len(pool)
         staged = from_reference_arrays(
-            dev, consts=dk.make_consts(), meta=meta, words=words, tables=packed,
+            dev, consts=dk.make_consts(), words=words, tables=packed,
         )
+        counts = [(max(len(blocks), 1), sum(b[2] for b in blocks if b[0] == "seq"))
+                  for blocks in frames_blocks]
+        route, launch_bytes = ((_ring_exec_fn, _ring_launch_bytes) if use_ring
+                               else (_fused_exec_fn, _wide_launch_bytes))
+        groups = plan_mod.launch_groups(list(zip(bounds, nlit_f)), counts, launch_bytes)
 
-    with phase_timer("dec.fused_exec") as _pt:
-        route = _ring_exec_fn if use_ring else _fused_exec_fn
-        out_dev, meta_out = route(
-            staged["consts"], staged["meta"], staged["words"], staged["tables"],
-            pools, nlit_f, OUTB, dev,
-        )
-        _pt.fence(out_dev)
-
-    meta_np = meta_out[:F].cpu().numpy()
-    totals = meta_np[:, 0]
-    bad = meta_np[:, 1]
-    litc = meta_np[:, 2]
-    for fi, (hdr, _p, _c) in enumerate(plans):
-        if bad[fi]:
-            raise corruption_detected("match offset beyond window or literal overrun")
-        if litc[fi] != nlit_f[fi]:
-            raise corruption_detected("literal budget mismatch")
-        if hdr.content_size is not None and totals[fi] - plens[fi] != hdr.content_size:
-            raise corruption_detected("frame content size mismatch")
-        if seek_table is not None and totals[fi] != bounds[fi]:
-            raise corruption_detected("frame size disagrees with seek table")
+    out_dev, totals, rows = None, [], []
+    for lo, hi in groups:
+        with phase_timer("dec.fused_layout"):
+            meta, _n_rec = dk.build_records(frames_blocks[lo:hi])
+            meta_dev = from_reference_arrays(dev, meta=meta)["meta"]
+        with phase_timer("dec.fused_exec") as _pt:
+            out_g, meta_out = route(
+                staged["consts"], meta_dev, staged["words"], staged["tables"],
+                pools[lo:hi], nlit_f[lo:hi], _outb(max(bounds[lo:hi])), dev,
+            )
+            _pt.fence(out_g)
+        totals += decode_routes.check_frames(plans[lo:hi], meta_out, nlit_f[lo:hi],
+                                             bounds[lo:hi], seek_table, plens[lo:hi])
+        if return_device:
+            out_dev = decode_routes.place_group(out_dev, out_g, lo, hi, (F, _outb(max_bound)))
+        else:
+            with phase_timer("dec.fused_pull+verify"):
+                out = out_g.cpu().numpy()
+                rows += [out[fi - lo, plens[fi] : totals[fi]].tobytes() for fi in range(lo, hi)]
+        # The next group allocates only after this one's buffers are freed.
+        del out_g, meta_out, meta_dev
 
     if return_device:
-        return out_dev, [int(t) for t in totals]
+        return out_dev, totals
 
-    with phase_timer("dec.fused_pull+verify"):
-        out = out_dev.cpu().numpy()
-        parts = []
-        for fi, (hdr, _p, cpos) in enumerate(plans):
-            result = out[fi, plens[fi] : int(totals[fi])].tobytes()
-            if verify_checksum:
-                plan_mod.check_checksum(blob, hdr, cpos, result)
-            parts.append(result)
-    return parts if return_parts else b"".join(parts)
+    if verify_checksum:
+        with phase_timer("dec.fused_pull+verify"):
+            decode_routes.verify_checksums(blob, plans, rows)
+    return rows if return_parts else b"".join(rows)

@@ -1,6 +1,6 @@
-// Warp-wide copies of the sequence executors (fused_decode.cu,
-// exec_kernel.cu): one warp owns a frame's output row and its 32 lanes
-// split every literal run and every match copy.
+// Warp-wide copies of the serial sequence executor (exec_kernel.cu): one
+// warp owns a frame's output row and its 32 lanes split every literal run
+// and every match copy.
 #pragma once
 
 #include "common.cuh"

@@ -17,8 +17,8 @@
 // depends on the one before, and each match reads bytes the frame wrote
 // just before, so a frame is a serial chain; frames run side by side.
 //
-// What the design does about it: one warp per frame (the pattern of the
-// fused decoder in fused_decode.cu, without its FSE stage). The warp loads
+// What the design does about it: one warp per frame (the design the ring
+// decoder had before it moved onto wide_decode.cu's stages). The warp loads
 // 32 sequences at a time with one coalesced load per lane and hands them
 // out with shuffles; the 32 lanes then split each literal run and match
 // copy (copy.cuh). The output goes straight into the frame's row.

@@ -1,60 +1,85 @@
-// Wide-window decode for Hopper: FSE decode and sequence execution of every
-// frame, behind three launchers that wrapper ops/decode_kernel.py::wide_decode
-// runs in order on one stream.
+// Fused FSE decode and sequence execution for Hopper, for both contracts
+// of the reference, behind three launchers per contract that run in order
+// on one stream:
 //
-// Replaces zeekstd_tpu/ops/decode_kernel.py (_build / get_decode_kernel, the
-// pallas_call at decode_kernel.py:388), and keeps its contract: literals one
-// int32 per byte in, bytes out, any window; meta_out row f holds (total, bad
-// flag, literals used). The plain version is ops/decode_kernel.py::wide_plain.
+//   wide (ops/decode_kernel.py::wide_stages): zk_wide_fse_launch,
+//     zk_wide_scan_launch, zk_wide_resolve_launch. Replaces
+//     zeekstd_tpu/ops/decode_kernel.py (_build / get_decode_kernel, the
+//     pallas_call at decode_kernel.py:388): literals one int32 per byte in,
+//     bytes out, any window. Plain version: ops/decode_kernel.py::wide_plain.
+//   ring (ops/ring_kernel.py::ring_stages): zk_ring_fse_launch,
+//     zk_ring_scan_launch, zk_ring_resolve_launch. Replaces
+//     zeekstd_tpu/ops/ring_kernel.py (_build / get_ring_kernel, the
+//     pallas_call at ring_kernel.py:541): literal pools as LE words in, LE
+//     words out, windows <= 512 KiB. Plain version:
+//     ops/ring_kernel.py::ring_plain.
 //
-// The TPU kernel walks the records in order on one core, decoding each FSE
+// meta_out row f holds (total, bad flag, literals used) for both.
+//
+// The TPU kernels walk the records in order on one core, decoding each FSE
 // stream and copying each sequence's bytes as it goes. On this card that walk
 // is a chain of dependent loads per frame, and each match copy waits for the
-// bytes the frame stored just before. The work is split in three stages:
+// bytes the frame stored just before. The work is split in three stages,
+// each a template on the contract (IS_RING):
 //
-//   1. zk_wide_fse_launch - one thread per KIND_SEQ record, 32 records per
-//      warp. Each thread decodes its block's sequences to raw (ll, ml, offset
-//      value) at the record's sequence offset (an exclusive sum of M_NSEQ
-//      that the wrapper computes on the card) and the bits left at the end.
-//      Bound by latency: each FSE state depends on the bits the previous
-//      sequence consumed; 32 chains per warp issue their loads together.
-//   2. zk_wide_scan_launch - one warp per frame walks the frame's records in
-//      order. It loads 32 decoded sequences at a time (one coalesced load per
-//      lane, the next 32 in flight) and hands them out by shuffles, threads
-//      the position, the literal cursor, the repeat offsets and the bad flag,
-//      and applies every clamp of the reference. Instead of copying bytes it
-//      writes one int32 descriptor per output byte: a terminal (a literal's
-//      index in the pool, an RLE byte, or 0) or the position of the byte a
-//      match byte copies. No descriptor depends on another, so the scan never
-//      reads what it wrote. Bound by the latency of its scalar chain, so the
-//      chain only computes where each of 32 sequences goes; the lanes then
-//      write those 32 sequences' descriptors at once, one sequence each
-//      (put_sequences).
-//   3. zk_wide_resolve_launch - pointer jumping over all F x OUTB descriptors,
-//      grid-wide, between two buffers: exactly ceil(log2(OUTB)) rounds that
-//      replace a pointer with its target's descriptor, then one gather that
-//      writes the terminals' bytes. Exact: a match byte points before its
-//      match, and every byte before it was written by then, so every chain
-//      ends at a terminal within OUTB hops; bytes past a frame's total keep
-//      the terminal 0 the wrapper fills the first buffer with. Bound by
-//      gathers; at 10 x 1 MiB frames each buffer is 40 MiB, within the 50 MB
-//      L2.
+//   1. fse - one thread per KIND_SEQ record, 32 records per warp. Each
+//      thread decodes its block's sequences to raw (ll, ml, offset value)
+//      at the record's sequence offset (an exclusive sum of M_NSEQ that the
+//      wrapper computes on the card) and the bits left at the end. Bound by
+//      latency: each FSE state depends on the bits the previous sequence
+//      consumed; 32 chains per warp issue their loads together.
+//   2. scan - one warp per frame walks the frame's records in order. It
+//      loads 32 decoded sequences at a time (one coalesced load per lane,
+//      the next 32 in flight) and hands them out by shuffles, threads the
+//      position, the literal cursor, the repeat offsets and the bad flag,
+//      and applies every clamp of the reference. Instead of copying bytes
+//      it writes one int32 descriptor per output byte: a terminal (a
+//      literal's index in the pool, an RLE byte, or 0) or the position of
+//      the byte a match byte copies. No descriptor depends on another, so
+//      the scan never reads what it wrote. Bound by the latency of its
+//      scalar chain, so the chain only computes where each of 32 sequences
+//      goes; the lanes then write those 32 sequences' descriptors at once,
+//      one sequence each (put_sequences).
+//   3. resolve - pointer jumping over all F x OUTB descriptors, grid-wide,
+//      between two buffers: exactly ceil(log2(OUTB)) rounds that replace a
+//      pointer with its target's descriptor, then one gather that writes
+//      the terminals' bytes. Exact: a match byte points before its match,
+//      and every byte before it was written by then, so every chain ends at
+//      a terminal within OUTB hops; bytes past a frame's total keep the
+//      terminal 0 the wrapper fills the first buffer with. Bound by
+//      gathers; at 10 x 1 MiB frames each buffer is 40 MiB, within the
+//      50 MB L2.
 //
-// Scratch, all allocated by the wrapper: 2 x 4 x F x OUTB bytes of
+// Scratch, all allocated by the wrappers: 2 x 4 x F x OUTB bytes of
 // descriptors, 12 bytes per sequence and 8 per record (80 MiB + about 4 MiB
 // for 10 frames of 1 MiB). The kernels allocate nothing.
 //
-// The arithmetic is the TPU wide kernel's, hostile input included: bit reads
-// clip the word index to [0, WB - 2] and mask at most 31 bits; a meta row
+// The arithmetic is the TPU kernels', hostile input included: a meta row
 // index outside the table reads the last row; decode-table entries are
 // indexed & 511 and codes & 63; the offset value is (1 << min(code, 31)) +
-// bits; the state-update bits after a block's last sequence are not consumed.
-// A stage of the ring route's contract (ops/ring_kernel.py) would differ in
-// the literal clamp (the block budget), the 512 KiB offset check and the
-// four-word bit reads: scan_sequence and read_bits are where those go.
+// bits; the state-update bits after a block's last sequence are not
+// consumed; bit reads mask at most 31 bits. The contracts differ in four
+// places:
+//   - bit reads: the wide contract reads every field from the two words
+//     around it (the word index clipped to [0, WB - 2]); the ring contract
+//     reads a sequence's fields and state updates from the four words at
+//     bw = clamp((rem >> 5) - 3, 0, WB - 4), rem the stream position at the
+//     sequence's start, and a field below them reads from their floor
+//     (RingBits). The three initial states use the two-word read in both.
+//   - the literal clamp: the wide contract's window is LITB + 128 bytes
+//     from the 128-byte row holding the record's first literal, for
+//     sequences, trailing literals and literal records alike; the ring
+//     contract clamps a sequence's literals at its block's budget and
+//     trailing literals and literal records by the output only.
+//   - the offset check: the ring contract also marks an offset over 512 KiB
+//     bad and copies from at most 512 KiB back.
+//   - the pools: int32 per byte (wide) or bytes of LE words (ring); the
+//     ring output is the same bytes, returned as LE words by the wrapper.
 //
 // Precondition (build_records): a frame's F_FRAME_START, if any, is on its
 // first record, so the scan writes each output position at most once.
+
+#include <type_traits>
 
 #include "common.cuh"
 
@@ -77,6 +102,8 @@ constexpr int D_ZERO = -1;
 __device__ __forceinline__ int d_byte(int b) { return -1 - b; }
 __device__ __forceinline__ int d_lit(int i) { return -257 - i; }
 
+constexpr int RING = 1 << 19;  // the ring contract's window limit (512 KiB)
+
 // n bits ending at bit `rem` of the backward stream w[0, WB) (n in [0, 31]).
 __device__ __forceinline__ uint32_t read_bits(const uint32_t* __restrict__ w, int WB,
                                               int rem, int n) {
@@ -87,6 +114,42 @@ __device__ __forceinline__ uint32_t read_bits(const uint32_t* __restrict__ w, in
   const uint32_t hi = sh == 0 ? 0u : __ldg(w + wi + 1) << (32 - sh);
   return ((__ldg(w + wi) >> sh) | hi) & zk_low_mask(n);
 }
+
+// A sequence's bit reads on the wide contract: each field from the whole
+// row.
+struct WideBits {
+  const uint32_t* w;
+  int WB;
+  __device__ __forceinline__ WideBits(const uint32_t* w_, int WB_, int) : w(w_), WB(WB_) {}
+  __device__ __forceinline__ uint32_t operator()(int rm, int n) const {
+    return read_bits(w, WB, rm, n);
+  }
+};
+
+// A sequence's bit reads on the ring contract: every field from the four
+// words loaded at the sequence's start (`rem`); a field reaching below
+// them reads from their floor.
+struct RingBits {
+  uint32_t w0, w1, w2, w3;
+  int wbase;
+  __device__ __forceinline__ RingBits(const uint32_t* w, int WB, int rem) {
+    const int bw = min(max((int)((unsigned)rem >> 5) - 3, 0), WB - 4);
+    w0 = __ldg(w + bw);
+    w1 = __ldg(w + bw + 1);
+    w2 = __ldg(w + bw + 2);
+    w3 = __ldg(w + bw + 3);
+    wbase = bw * 32;
+  }
+  __device__ __forceinline__ uint32_t operator()(int rm, int n) const {
+    if (n <= 0) return 0u;
+    const int lo = max(rm - n - wbase, 0);
+    const int ws = lo >> 5, sh = lo & 31;
+    const uint32_t x = ws == 0 ? w0 : ws == 1 ? w1 : ws == 2 ? w2 : w3;
+    const uint32_t y = ws == 0 ? w1 : ws == 1 ? w2 : ws == 2 ? w3 : 0u;
+    const uint32_t v = sh == 0 ? x : (x >> sh) | (y << (32 - sh));
+    return v & zk_low_mask(n);
+  }
+};
 
 // ---- stage 1: FSE decode, one thread per record ------------------------
 
@@ -103,7 +166,9 @@ struct FseArgs {
   int* rems;                 // (nrecp,) bits left after each KIND_SEQ record
 };
 
-__global__ void __launch_bounds__(LANES) wide_fse_kernel(FseArgs a) {
+template <bool IS_RING>
+__global__ void __launch_bounds__(LANES) fse_kernel(FseArgs a) {
+  using Bits = typename std::conditional<IS_RING, RingBits, WideBits>::type;
   const int r = blockIdx.x * LANES + threadIdx.x;
   if (r >= a.nrecp) return;
   const int* m = a.meta + (long long)r * META_COLS;
@@ -129,33 +194,34 @@ __global__ void __launch_bounds__(LANES) wide_fse_kernel(FseArgs a) {
     const int of_e = __ldg(tof + (of_s & 511));
     const int ml_e = __ldg(tml + (ml_s & 511));
     const int ll_e = __ldg(tll + (ll_s & 511));
+    const Bits rd(w, WB, rem);
     const int of_code = of_e & 0xFF;
-    const int ofv = (int)((1u << min(of_code, 31)) + read_bits(w, WB, rem, of_code));
+    const int ofv = (int)((1u << min(of_code, 31)) + rd(rem, of_code));
     rem -= of_code;
     const int ml_code = ml_e & 0xFF & 63;
     const int mlb = __ldg(c + 192 + ml_code);
-    const int ml = __ldg(c + 128 + ml_code) + (int)read_bits(w, WB, rem, mlb);
+    const int ml = __ldg(c + 128 + ml_code) + (int)rd(rem, mlb);
     rem -= mlb;
     const int ll_code = ll_e & 0xFF & 63;
     const int llb = __ldg(c + 64 + ll_code);
-    const int ll = __ldg(c + ll_code) + (int)read_bits(w, WB, rem, llb);
+    const int ll = __ldg(c + ll_code) + (int)rd(rem, llb);
     rem -= llb;
     // FSE state updates; the bits after the block's last sequence are read
     // but not consumed.
     const bool upd = j + 1 < nseq;
     {
       const int nb = (ll_e >> 8) & 0xFF;
-      const int s2 = (ll_e >> 16) + (int)read_bits(w, WB, rem, nb);
+      const int s2 = (ll_e >> 16) + (int)rd(rem, nb);
       if (upd) { rem -= nb; ll_s = s2; }
     }
     {
       const int nb = (ml_e >> 8) & 0xFF;
-      const int s2 = (ml_e >> 16) + (int)read_bits(w, WB, rem, nb);
+      const int s2 = (ml_e >> 16) + (int)rd(rem, nb);
       if (upd) { rem -= nb; ml_s = s2; }
     }
     {
       const int nb = (of_e >> 8) & 0xFF;
-      const int s2 = (of_e >> 16) + (int)read_bits(w, WB, rem, nb);
+      const int s2 = (of_e >> 16) + (int)rd(rem, nb);
       if (upd) { rem -= nb; of_s = s2; }
     }
     a.lls[base + j] = ll;
@@ -173,8 +239,10 @@ struct ScanArgs {
   const int* seq_off;
   const int* rems;
   const int *lls, *mls, *ofvs;
-  int OUTB, LITB, LROWS;
-  int* desc;      // (F, OUTB)
+  int OUTB;
+  int LITB, LROWS;  // the wide contract's literal window (unused on the ring)
+  int nlit;         // literal pool bytes per frame; reads past it are 0
+  int* desc;        // (F, OUTB)
   int* meta_out;  // (F, 128)
 };
 
@@ -246,6 +314,7 @@ __device__ __forceinline__ void put_sequences(int* d, const SeqSpan& q, int nlit
 // One sequence of a KIND_SEQ record, with the reference's repeat-offset
 // rules (RFC 8878 3.1.1.3.2.1.1) and hostile-input clamps: advances the
 // frame state and returns where the sequence's bytes go.
+template <bool IS_RING>
 __device__ __forceinline__ SeqSpan scan_sequence(const ScanArgs& a, int lit_lim,
                                                  FrameState& s, int ll, int ml, int ofv) {
   const int ridx = ofv > 3 ? 0 : ofv + (ll == 0 ? 1 : 0);
@@ -259,18 +328,24 @@ __device__ __forceinline__ SeqSpan scan_sequence(const ScanArgs& a, int lit_lim,
   const int ll_w = min(min(ll, a.OUTB - s.pos), max(lit_lim - s.litcur, 0));
   const int mpos = s.pos + ll_w;
   const int ml_w = min(ml, a.OUTB - mpos);
-  s.bad |= ll_w != ll || (ml > 0 && (off <= 0 || off > mpos)) || ml_w != ml;
-  const SeqSpan q{s.pos, s.litcur, ll_w, ml_w, min(max(off, 1), max(mpos, 1))};
+  if (IS_RING) {
+    s.bad |= ll_w != ll || (ml > 0 && (off <= 0 || off > mpos || off > RING)) || ml_w != ml;
+  } else {
+    s.bad |= ll_w != ll || (ml > 0 && (off <= 0 || off > mpos)) || ml_w != ml;
+  }
+  const int reach = IS_RING ? min(mpos, RING) : mpos;
+  const SeqSpan q{s.pos, s.litcur, ll_w, ml_w, min(max(off, 1), max(reach, 1))};
   s.pos = mpos + ml_w;
   s.litcur += ll_w;
   return q;
 }
 
-__global__ void __launch_bounds__(LANES) wide_scan_kernel(ScanArgs a) {
+template <bool IS_RING>
+__global__ void __launch_bounds__(LANES) scan_kernel(ScanArgs a) {
   const int f = blockIdx.x;
   const int lane = threadIdx.x;
   int* d = a.desc + (long long)f * a.OUTB;
-  const int nlit = a.LROWS * 128;
+  const int nlit = a.nlit;
   const int lrws = a.LITB / 128 + 1;
   FrameState s{0, 1, 4, 8, 0, 0};
   for (int r0 = 0; r0 < a.nrecp; r0 += LANES) {
@@ -290,9 +365,11 @@ __global__ void __launch_bounds__(LANES) wide_scan_kernel(ScanArgs a) {
       const int litn = __shfl_sync(FULL, v, M_LITN);
       if (flags & F_FRAME_START) s = FrameState{0, 1, 4, 8, 0, 0};
       const int litcur0 = s.litcur;
-      // The record's literal window, fixed where it starts: LITB + 128 bytes
-      // from the 128-byte row holding its first literal.
-      const int lit_lim = min(litcur0 / 128, a.LROWS - lrws) * 128 + a.LITB + 128;
+      // The record's literal limit, fixed where it starts: the block's
+      // budget (ring), or LITB + 128 bytes from the 128-byte row holding its
+      // first literal (wide).
+      const int lit_lim = IS_RING ? litcur0 + litn
+                                  : min(litcur0 / 128, a.LROWS - lrws) * 128 + a.LITB + 128;
       if (kind == KIND_SEQ) {
         const int nseq = __shfl_sync(FULL, v, M_NSEQ);
         const long long base = __shfl_sync(FULL, v, COL_SEQ_OFF);
@@ -314,7 +391,7 @@ __global__ void __launch_bounds__(LANES) wide_scan_kernel(ScanArgs a) {
           const int cnt = min(LANES, nseq - j0);
           SeqSpan mine{0, 0, 0, 0, 1};
           for (int q = 0; q < cnt; ++q) {
-            const SeqSpan o = scan_sequence(a, lit_lim, s, __shfl_sync(FULL, my_ll, q),
+            const SeqSpan o = scan_sequence<IS_RING>(a, lit_lim, s, __shfl_sync(FULL, my_ll, q),
                                             __shfl_sync(FULL, my_ml, q),
                                             __shfl_sync(FULL, my_ofv, q));
             if (lane == q) mine = o;
@@ -326,14 +403,15 @@ __global__ void __launch_bounds__(LANES) wide_scan_kernel(ScanArgs a) {
         s.bad |= rem != 0;
         const int trail = litn - (s.litcur - litcur0);
         s.bad |= trail < 0;
-        const int trail_c =
-            min(min(max(trail, 0), a.OUTB - s.pos), max(lit_lim - s.litcur, 0));
+        int trail_c = min(max(trail, 0), a.OUTB - s.pos);
+        if (!IS_RING) trail_c = min(trail_c, max(lit_lim - s.litcur, 0));
         s.bad |= trail_c != max(trail, 0);
         put_lits(d, s.pos, s.litcur, 0, trail_c, nlit);
         s.pos += trail_c;
         s.litcur += trail_c;
       } else if (kind == KIND_LIT) {
-        const int litn_w = min(min(litn, a.OUTB - s.pos), max(lit_lim - litcur0, 0));
+        int litn_w = min(litn, a.OUTB - s.pos);
+        if (!IS_RING) litn_w = min(litn_w, max(lit_lim - litcur0, 0));
         s.bad |= litn_w != litn;
         put_lits(d, s.pos, litcur0, 0, litn_w, nlit);
         s.pos += litn_w;
@@ -361,9 +439,9 @@ constexpr int RESOLVE_THREADS = 256;
 constexpr int MAX_GRID_Y = 65535;
 
 // dst = src with every pointer replaced by its target's descriptor; four
-// descriptors per thread (OUTB is a multiple of 128).
+// descriptors per thread (OUTB is a multiple of 4).
 __global__ void __launch_bounds__(RESOLVE_THREADS)
-wide_jump_kernel(const int* __restrict__ src, int* __restrict__ dst, int F, int OUTB) {
+jump_kernel(const int* __restrict__ src, int* __restrict__ dst, int F, int OUTB) {
   for (int f = blockIdx.y; f < F; f += gridDim.y) {
     const int* s = src + (long long)f * OUTB;
     int* t = dst + (long long)f * OUTB;
@@ -379,17 +457,21 @@ wide_jump_kernel(const int* __restrict__ src, int* __restrict__ dst, int F, int 
   }
 }
 
-__device__ __forceinline__ uint32_t terminal_byte(int dv, const int* __restrict__ lit) {
+// A terminal's byte: t < 256 is the byte t, else literal t - 256 of the
+// frame's pool (int32 per byte on the wide contract, bytes on the ring).
+template <typename Lit>
+__device__ __forceinline__ uint32_t terminal_byte(int dv, const Lit* __restrict__ lit) {
   const int t = -1 - dv;
   return t < 256 ? (uint32_t)t : (uint32_t)(__ldg(lit + (t - 256)) & 0xFF);
 }
 
+template <typename Lit>
 __global__ void __launch_bounds__(RESOLVE_THREADS)
-wide_gather_kernel(const int* __restrict__ desc, const int* __restrict__ lits,
-                   long long lrow, uint8_t* __restrict__ out, int F, int OUTB) {
+gather_kernel(const int* __restrict__ desc, const Lit* __restrict__ lits,
+              long long lrow, uint8_t* __restrict__ out, int F, int OUTB) {
   for (int f = blockIdx.y; f < F; f += gridDim.y) {
     const int* s = desc + (long long)f * OUTB;
-    const int* lit = lits + f * lrow;
+    const Lit* lit = lits + f * lrow;
     uint8_t* o = out + (long long)f * OUTB;
     for (int i = (blockIdx.x * RESOLVE_THREADS + threadIdx.x) * 4; i < OUTB;
          i += gridDim.x * RESOLVE_THREADS * 4) {
@@ -401,36 +483,37 @@ wide_gather_kernel(const int* __restrict__ desc, const int* __restrict__ lits,
   }
 }
 
-}  // namespace
-
-extern "C" int zk_wide_fse_launch(const void* consts, const void* meta, int nrecp,
-                                  const void* words, int nw, int WB, const void* tables,
-                                  int ntables, const void* seq_off, void* lls, void* mls,
-                                  void* ofvs, void* rems, void* stream) {
+template <bool IS_RING>
+int fse_launch(const void* consts, const void* meta, int nrecp, const void* words, int nw,
+               int WB, const void* tables, int ntables, const void* seq_off, void* lls,
+               void* mls, void* ofvs, void* rems, void* stream) {
   const FseArgs a{(const int*)consts, (const int*)meta, nrecp, (const uint32_t*)words, nw,
                   WB, (const int*)tables, ntables, (const int*)seq_off, (int*)lls,
                   (int*)mls, (int*)ofvs, (int*)rems};
   if (nrecp > 0) {
-    wide_fse_kernel<<<(nrecp + LANES - 1) / LANES, LANES, 0, (cudaStream_t)stream>>>(a);
+    fse_kernel<IS_RING>
+        <<<(nrecp + LANES - 1) / LANES, LANES, 0, (cudaStream_t)stream>>>(a);
   }
   return zk_last_error();
 }
 
-extern "C" int zk_wide_scan_launch(const void* meta, int nrecp, const void* seq_off,
-                                   const void* rems, const void* lls, const void* mls,
-                                   const void* ofvs, int F, int OUTB, int LITB, int LROWS,
-                                   void* desc, void* meta_out, void* stream) {
+template <bool IS_RING>
+int scan_launch(const void* meta, int nrecp, const void* seq_off, const void* rems,
+                const void* lls, const void* mls, const void* ofvs, int F, int OUTB,
+                int LITB, int LROWS, int nlit, void* desc, void* meta_out, void* stream) {
   const ScanArgs a{(const int*)meta, nrecp, (const int*)seq_off, (const int*)rems,
                    (const int*)lls, (const int*)mls, (const int*)ofvs, OUTB, LITB, LROWS,
-                   (int*)desc, (int*)meta_out};
-  if (F > 0) wide_scan_kernel<<<F, LANES, 0, (cudaStream_t)stream>>>(a);
+                   nlit, (int*)desc, (int*)meta_out};
+  if (F > 0) scan_kernel<IS_RING><<<F, LANES, 0, (cudaStream_t)stream>>>(a);
   return zk_last_error();
 }
 
 // Runs ceil(log2(OUTB)) jump rounds from desc_a (desc_b is the other
-// buffer), then the gather into out.
-extern "C" int zk_wide_resolve_launch(void* desc_a, void* desc_b, const void* lits, int F,
-                                      int LROWS, int OUTB, void* out, void* stream) {
+// buffer), then the gather of each frame's pool row of `lrow` elements
+// into out.
+template <typename Lit>
+int resolve_launch(void* desc_a, void* desc_b, const Lit* lits, long long lrow, int F,
+                   int OUTB, void* out, void* stream) {
   if (F <= 0 || OUTB <= 0) return zk_last_error();
   const cudaStream_t st = (cudaStream_t)stream;
   const int per_block = RESOLVE_THREADS * 4;
@@ -438,14 +521,62 @@ extern "C" int zk_wide_resolve_launch(void* desc_a, void* desc_b, const void* li
   int* cur = (int*)desc_a;
   int* nxt = (int*)desc_b;
   for (long long span = 1; span < OUTB; span <<= 1) {
-    wide_jump_kernel<<<grid, RESOLVE_THREADS, 0, st>>>(cur, nxt, F, OUTB);
+    jump_kernel<<<grid, RESOLVE_THREADS, 0, st>>>(cur, nxt, F, OUTB);
     if (int e = zk_last_error()) return e;
     int* t = cur;
     cur = nxt;
     nxt = t;
   }
-  wide_gather_kernel<<<grid, RESOLVE_THREADS, 0, st>>>(cur, (const int*)lits,
-                                                       (long long)LROWS * 128,
-                                                       (uint8_t*)out, F, OUTB);
+  gather_kernel<Lit><<<grid, RESOLVE_THREADS, 0, st>>>(cur, lits, lrow, (uint8_t*)out, F, OUTB);
   return zk_last_error();
+}
+
+}  // namespace
+
+// Wide contract: lits int32[F, LROWS, 128], out uint8[F, OUTB] (OUTB a
+// multiple of 128).
+extern "C" int zk_wide_fse_launch(const void* consts, const void* meta, int nrecp,
+                                  const void* words, int nw, int WB, const void* tables,
+                                  int ntables, const void* seq_off, void* lls, void* mls,
+                                  void* ofvs, void* rems, void* stream) {
+  return fse_launch<false>(consts, meta, nrecp, words, nw, WB, tables, ntables, seq_off, lls,
+                           mls, ofvs, rems, stream);
+}
+
+extern "C" int zk_wide_scan_launch(const void* meta, int nrecp, const void* seq_off,
+                                   const void* rems, const void* lls, const void* mls,
+                                   const void* ofvs, int F, int OUTB, int LITB, int LROWS,
+                                   void* desc, void* meta_out, void* stream) {
+  return scan_launch<false>(meta, nrecp, seq_off, rems, lls, mls, ofvs, F, OUTB, LITB, LROWS,
+                            LROWS * 128, desc, meta_out, stream);
+}
+
+extern "C" int zk_wide_resolve_launch(void* desc_a, void* desc_b, const void* lits, int F,
+                                      int LROWS, int OUTB, void* out, void* stream) {
+  return resolve_launch((void*)desc_a, desc_b, (const int*)lits, (long long)LROWS * 128, F,
+                        OUTB, out, stream);
+}
+
+// Ring contract: lit_words int32[F, LW] read as LW * 4 bytes per frame,
+// out the bytes of int32[F, OUTB / 4] (OUTB a multiple of 4), WB >= 4.
+extern "C" int zk_ring_fse_launch(const void* consts, const void* meta, int nrecp,
+                                  const void* words, int nw, int WB, const void* tables,
+                                  int ntables, const void* seq_off, void* lls, void* mls,
+                                  void* ofvs, void* rems, void* stream) {
+  return fse_launch<true>(consts, meta, nrecp, words, nw, WB, tables, ntables, seq_off, lls,
+                          mls, ofvs, rems, stream);
+}
+
+extern "C" int zk_ring_scan_launch(const void* meta, int nrecp, const void* seq_off,
+                                   const void* rems, const void* lls, const void* mls,
+                                   const void* ofvs, int F, int OUTB, int LW, void* desc,
+                                   void* meta_out, void* stream) {
+  return scan_launch<true>(meta, nrecp, seq_off, rems, lls, mls, ofvs, F, OUTB, 0, 0, LW * 4,
+                           desc, meta_out, stream);
+}
+
+extern "C" int zk_ring_resolve_launch(void* desc_a, void* desc_b, const void* lit_words,
+                                      int F, int LW, int OUTB, void* out, void* stream) {
+  return resolve_launch(desc_a, desc_b, (const uint8_t*)lit_words, (long long)LW * 4, F, OUTB,
+                        out, stream);
 }

@@ -15,8 +15,9 @@ Both routes share two device dispatches:
                   kernel); repeat offsets resolved per block
 Then:
   serial    dec.serial_layout (record table, literal segments), one
-            ``exec`` kernel launch for all frames (repeat offsets threaded
-            across blocks in the kernel), dec.serial_pull+verify. An
+            ``exec`` kernel launch per group of frames under
+            ``plan.LAUNCH_BYTES`` (repeat offsets threaded across blocks
+            in the kernel), dec.serial_pull+verify. An
             archive whose blocks exceed the executor's literal window
             (SERIAL_LITB) goes to the doubling route, counted by
             ``serial_fallback_count``.
@@ -63,6 +64,45 @@ def count_fallback(reason: str):
     _serial_fallbacks["count"] += 1
     _serial_fallbacks["reason"] = reason
     return NotImplemented
+
+
+def check_frames(plans, meta_out, nlit_f, bounds, seek_table, plens=None):
+    """The reference's checks of a launch's meta_out rows (total, bad flag,
+    literals used), frame by frame: raise ``corruption_detected`` at the
+    first frame that fails one; else return the frames' totals. ``plens``:
+    per frame, the prefix bytes its total includes."""
+    meta_np = meta_out[: len(plans)].cpu().numpy()
+    plens = plens or [0] * len(plans)
+    for (hdr, _p, _c), (total, bad, litc), nlit, bound, plen in zip(
+            plans, meta_np[:, :3].tolist(), nlit_f, bounds, plens):
+        if bad:
+            raise corruption_detected("match offset beyond window or literal overrun")
+        if litc != nlit:
+            raise corruption_detected("literal budget mismatch")
+        if hdr.content_size is not None and total - plen != hdr.content_size:
+            raise corruption_detected("frame content size mismatch")
+        if seek_table is not None and total != bound:
+            raise corruption_detected("frame size disagrees with seek table")
+    return [int(t) for t in meta_np[:, 0]]
+
+
+def place_group(out_dev, out_g, lo: int, hi: int, shape):
+    """``return_device`` output across launch groups: a group of every
+    frame is the result itself; else each group's rows go into one zeroed
+    uint8 tensor of ``shape`` (frames, the archive's largest bound)."""
+    if hi - lo == shape[0]:
+        return out_g
+    if out_dev is None:
+        out_dev = torch.zeros(shape, dtype=torch.uint8, device=out_g.device)
+    out_dev[lo:hi, : out_g.shape[1]] = out_g
+    return out_dev
+
+
+def verify_checksums(blob, plans, parts) -> None:
+    """Each frame's content checksum against its decoded bytes, in order,
+    after every launch group's checks."""
+    for (hdr, _p, cpos), result in zip(plans, parts):
+        plan_mod.check_checksum(blob, hdr, cpos, result)
 
 
 def _pow2(n: int, floor_log: int) -> int:
@@ -134,10 +174,11 @@ def _build_map(dest, base, nval, size: int, fill: int):
     base[seg] + (j - dest[seg]), seg the rightmost segment with
     dest[seg] <= j (scatter-add + cumsum), or to ``fill`` past nval."""
     counts = seq_exec._scatter_count(dest, size)
-    seg = (torch.cumsum(counts, dim=-1) - 1).clamp(0, dest.shape[1] - 1)
+    seg = torch.cumsum(counts, dim=-1).sub_(1).clamp_(0, dest.shape[1] - 1)
+    del counts
     j = torch.arange(size, device=dest.device)[None, :]
-    m = torch.gather(base, 1, seg) + (j - torch.gather(dest, 1, seg))
-    return torch.where(j < nval[:, None], m, fill)
+    m = torch.gather(base, 1, seg).add_(j).sub_(torch.gather(dest, 1, seg))
+    return m.masked_fill_(j >= nval[:, None], fill)
 
 
 def _static_pool(static: bytes) -> np.ndarray:
@@ -155,25 +196,35 @@ def _lit_segments(frame_segs, sp: int, huf_out_bound: int, size: int):
     SEGL = _pow2(max((len(s) for s in frame_segs), default=1), 2)
     lit_dest = np.full((F, SEGL), size, np.int32)
     lit_base = np.zeros((F, SEGL), np.int32)
-    nlit_f = np.zeros(F, np.int32)
     for fi, segs in enumerate(frame_segs):
         off = 0
         for k, (static, src, n) in enumerate(segs):
             lit_dest[fi, k] = off
             lit_base[fi, k] = src if static else sp + src * huf_out_bound
             off += n
-        nlit_f[fi] = off
-    return lit_dest, lit_base, nlit_f
+    return lit_dest, lit_base
 
 
-def _gather_lits(lit_dest, lit_base, nlit_f, size, static_np, dec_streams, dev):
+def _lit_source(static_np, dec_streams, dev):
+    """[static pool | decoded Huffman rows], flat on the device."""
+    static = from_reference_arrays(dev, static=static_np)["static"]
+    return torch.cat([static, dec_streams.reshape(-1)])
+
+
+def _gather_lits(lit_dest, lit_base, nlit_f, size, lit_flat, dev):
     """Each frame's flat literal stream uint8[F, size], gathered once from
-    [static pool | decoded Huffman rows] through the segment map."""
-    st = from_reference_arrays(dev, dest=lit_dest, base=lit_base, nval=nlit_f,
-                               static=static_np)
+    ``lit_flat`` (``_lit_source``) through the segment map."""
+    st = from_reference_arrays(dev, dest=lit_dest, base=lit_base, nval=nlit_f)
     lit_map = _build_map(st["dest"].long(), st["base"].long(), st["nval"].long(), size, 0)
-    lit_flat = torch.cat([st["static"], dec_streams.reshape(-1)])
-    return lit_flat[lit_map.clamp(0, lit_flat.shape[0] - 1)]
+    return lit_flat[lit_map.clamp_(0, lit_flat.shape[0] - 1)]
+
+
+def _gather_bytes(F: int, size: int, segl: int) -> int:
+    """Device bytes of ``_gather_lits`` for F frames of ``size`` slots and
+    ``segl`` segments: per slot, 24 B of int64 index maps at most alive at
+    once (``_build_map``) and the gathered byte; per segment, 64 B of its
+    int32 and int64 copies and the scatter's temporaries."""
+    return F * (size * 25 + segl * 64)
 
 
 def classic_decompress_archive(blob, plans, lay, seek_table, verify_checksum, return_device,
@@ -212,10 +263,10 @@ def _literal_segs(fblocks):
     return [s for blk in fblocks if blk[0] != "rle" for s in blk[1]]
 
 
-def _serial_layout(lay, sbd: int, rpb: int):
-    """The serial executor's record table, or None when a block's literals
-    exceed SERIAL_LITB."""
-    frames_blocks = []
+def _serial_records(lay, rpb: int):
+    """Per frame, the serial executor's record entries (``ek.build_records``
+    input), or None when a block's literals exceed SERIAL_LITB."""
+    frames_recs = []
     for fblocks in lay.blocks:
         recs = []
         for blk in fblocks:
@@ -229,71 +280,87 @@ def _serial_layout(lay, sbd: int, rpb: int):
                 recs.append(("lit", chunk_len))
             else:
                 recs.append(("seq", blk[2] * rpb, blk[3], chunk_len))
-        frames_blocks.append(recs)
-    meta, _n_rec = ek.build_records(frames_blocks, sbd)
-    return meta
+        frames_recs.append(recs)
+    return frames_recs
+
+
+def lit_rows(nlit_max: int, litb: int) -> int:
+    """128-byte rows per frame of the literal pools of a kernel whose
+    literal window is ``litb`` bytes (the wide decoder, the serial
+    executor): the largest pool and one window, rounded up to a power of
+    two."""
+    return 1 << max((nlit_max // 128 + litb // 128 + 1).bit_length(), 1)
+
+
+def _serial_launch_bytes(n, max_bound, nlit_max, nseg_max, n_rec):
+    size = lit_rows(nlit_max, SERIAL_LITB) * 128
+    return (ek.launch_bytes(n, _pow2(max_bound, 12), size // 128, n_rec)
+            + _gather_bytes(n, size, _pow2(nseg_max, 2)))
 
 
 def _serial_exec_dispatch(blob, plans, lay, lls_b, mls_b, ofvs_b, seq_bound, dec_streams,
                           huf_out_bound, seek_table, verify_checksum, return_device, dev):
-    """Decode every planned frame through the serial executor. Returns the
-    frames' bytes / (device rows, sizes), or NotImplemented when the
-    literal-window guard rules this archive out (counted). The reference's
-    4 MiB VMEM ceiling on a frame's output does not apply on the card."""
+    """Decode every planned frame through the serial executor, in launch
+    groups under ``plan.LAUNCH_BYTES`` (see ``plan.launch_groups``; with
+    ``return_device`` one (F, OUTB) tensor at the archive's largest bound,
+    filled group by group). Returns the frames' bytes / (device rows,
+    sizes), or NotImplemented when the literal-window guard rules this
+    archive out (counted). The reference's 4 MiB VMEM ceiling on a frame's
+    output does not apply on the card."""
     F = len(plans)
     bounds = plan_mod.frame_bounds(plans, seek_table)
-    OUTB = _pow2(max(bounds), 12)
     SBd = min(2048, seq_bound)
     rpb = seq_bound // SBd
+    LITB = SERIAL_LITB
     with phase_timer("dec.serial_layout"):
-        meta = _serial_layout(lay, SBd, rpb)
-        if meta is None:
+        frames_recs = _serial_records(lay, rpb)
+        if frames_recs is None:
             return count_fallback("oversize block literal budget")
         frame_segs = [_literal_segs(fb) for fb in lay.blocks]
-        LITB = SERIAL_LITB
-        LRWS = LITB // 128 + 1
-        nlit_max = max(plan_mod.seg_len(s) for s in frame_segs)
-        LROWS = 1 << max((nlit_max // 128 + LRWS).bit_length(), 1)
-        LBYTES = LROWS * 128
+        nlit_f = np.asarray([plan_mod.seg_len(s) for s in frame_segs], np.int64)
         static_np = _static_pool(lay.static)
-        lit_dest, lit_base, nlit_f = _lit_segments(frame_segs, static_np.shape[0],
-                                                   huf_out_bound, LBYTES)
+        n_rec = [max(sum(max(1, -(-r[2] // SBd)) if r[0] == "seq" else 1 for r in recs), 1)
+                 for recs in frames_recs]
+        groups = plan_mod.launch_groups(
+            list(zip(bounds, nlit_f, map(len, frame_segs))), n_rec, _serial_launch_bytes)
+        lit_flat = _lit_source(static_np, dec_streams, dev)
 
-    with phase_timer("dec.serial_exec") as pt:
-        lits = _gather_lits(lit_dest, lit_base, nlit_f, LBYTES, static_np, dec_streams, dev)
-        lits = lits.to(torch.int32).reshape(F, LROWS, 128)
-        meta_dev = from_reference_arrays(dev, meta=meta)["meta"]
-        out_dev, meta_out = ek.serial_exec(
-            meta_dev, lls_b.reshape(-1, SBd), mls_b.reshape(-1, SBd),
-            ofvs_b.reshape(-1, SBd), lits, OUTB=OUTB, LITB=LITB, SBd=SBd,
-        )
-        out_dev = out_dev.reshape(F, OUTB)
-        pt.fence(out_dev)
-
-    meta_np = meta_out.cpu().numpy()
-    totals, bad, litc = meta_np[:, 0], meta_np[:, 1], meta_np[:, 2]
-    for fi, (hdr, _p, _c) in enumerate(plans):
-        if bad[fi]:
-            raise corruption_detected("match offset beyond window or literal overrun")
-        if litc[fi] != nlit_f[fi]:
-            raise corruption_detected("literal budget mismatch")
-        if hdr.content_size is not None and totals[fi] != hdr.content_size:
-            raise corruption_detected("frame content size mismatch")
-        if seek_table is not None and totals[fi] != bounds[fi]:
-            raise corruption_detected("frame size disagrees with seek table")
+    out_dev, totals, rows = None, [], []
+    for lo, hi in groups:
+        Fg, OUTB = hi - lo, _pow2(max(bounds[lo:hi]), 12)
+        with phase_timer("dec.serial_layout"):
+            meta, _n_rec = ek.build_records(frames_recs[lo:hi], SBd)
+            LROWS = lit_rows(int(nlit_f[lo:hi].max()), LITB)
+            lit_dest, lit_base = _lit_segments(frame_segs[lo:hi], static_np.shape[0],
+                                               huf_out_bound, LROWS * 128)
+        with phase_timer("dec.serial_exec") as pt:
+            lits = _gather_lits(lit_dest, lit_base, nlit_f[lo:hi], LROWS * 128, lit_flat, dev)
+            lits = lits.to(torch.int32).reshape(Fg, LROWS, 128)
+            meta_dev = from_reference_arrays(dev, meta=meta)["meta"]
+            out_g, meta_out = ek.serial_exec(
+                meta_dev, lls_b.reshape(-1, SBd), mls_b.reshape(-1, SBd),
+                ofvs_b.reshape(-1, SBd), lits, OUTB=OUTB, LITB=LITB, SBd=SBd,
+            )
+            out_g = out_g.reshape(Fg, OUTB)
+            pt.fence(out_g)
+        totals += check_frames(plans[lo:hi], meta_out, nlit_f[lo:hi], bounds[lo:hi],
+                               seek_table)
+        if return_device:
+            out_dev = place_group(out_dev, out_g, lo, hi, (F, _pow2(max(bounds), 12)))
+        else:
+            with phase_timer("dec.serial_pull+verify"):
+                out = out_g.cpu().numpy()
+                rows += [out[fi - lo, : totals[fi]].tobytes() for fi in range(lo, hi)]
+        # The next group allocates only after this one's buffers are freed.
+        del lits, meta_dev, out_g, meta_out
 
     if return_device:
-        return out_dev, [int(t) for t in totals]
+        return out_dev, totals
 
-    with phase_timer("dec.serial_pull+verify"):
-        out = out_dev.cpu().numpy()
-        parts = []
-        for fi, (hdr, _p, cpos) in enumerate(plans):
-            result = out[fi, : int(totals[fi])].tobytes()
-            if verify_checksum:
-                plan_mod.check_checksum(blob, hdr, cpos, result)
-            parts.append(result)
-    return parts
+    if verify_checksum:
+        with phase_timer("dec.serial_pull+verify"):
+            verify_checksums(blob, plans, rows)
+    return rows
 
 
 # -------------------------------------------------------- doubling route ---
@@ -446,8 +513,8 @@ def _doubling_dispatch(blob, plans, lay, lls_b, mls_b, offs_b, ofvs_b, hasrep_de
         S = _pow2(max(len(s) for s in seq_slots), 5)
         L = _pow2(max(plan_mod.seg_len(s) for s in frame_segs), 7)
         static_np = _static_pool(lay.static + bytes(extra))
-        lit_dest, lit_base, nlit_f = _lit_segments(frame_segs, static_np.shape[0],
-                                                   huf_out_bound, L)
+        lit_dest, lit_base = _lit_segments(frame_segs, static_np.shape[0], huf_out_bound, L)
+        nlit_f = np.asarray([plan_mod.seg_len(s) for s in frame_segs], np.int64)
 
         # Per-frame run segments (dest, base) of the slot map; the dense
         # maps are rebuilt on the device (scatter-add + cumsum).
@@ -496,7 +563,8 @@ def _doubling_dispatch(blob, plans, lay, lls_b, mls_b, offs_b, ofvs_b, hasrep_de
         out_bound = _pow2(max(max(out_sizes), max(totals), 1), 7)
 
     with phase_timer("dec.exec_dispatch") as pt3:
-        lits = _gather_lits(lit_dest, lit_base, nlit_f, L, static_np, dec_streams, dev)
+        lits = _gather_lits(lit_dest, lit_base, nlit_f, L,
+                            _lit_source(static_np, dec_streams, dev), dev)
         out_dev, conv = seq_exec.execute_sequences_batch(
             lits, lls, mls, offs, out_bound, n_doublings=max(1, (out_bound - 1).bit_length()))
         # Corruption: a match reaching before the frame start, or a literal

@@ -9,11 +9,12 @@ also holds the kernel's plain PyTorch version:
   level-1 frame sizes the match kernel does not take, ``match_tpu.py``)
   and of the device Huffman decode (``huffman_spec.py``);
 - ``fse_kernel.fse_encode`` - FSE sequence bitstreams, one block per job;
-- ``ring_kernel.ring_decode`` - fused FSE decode and sequence execution,
-  one warp per frame;
-- ``decode_kernel.wide_decode`` - the same for any window, in three
-  stages: FSE decode per block, a scan per frame that writes one
-  descriptor per output byte, pointer jumping over the descriptors;
+- ``decode_kernel.wide_decode`` - fused FSE decode and sequence execution
+  for any window, in three stages: FSE decode per block, a scan per frame
+  that writes one descriptor per output byte, pointer jumping over the
+  descriptors;
+- ``ring_kernel.ring_decode`` - the same for windows of at most 512 KiB,
+  on the ring contract's instances of those stages;
 - ``entropy.fse_decode_sequences`` - FSE sequence decode, one thread per
   block (the serial and pointer-doubling decode routes);
 - ``exec_kernel.serial_exec`` - execution of pre-decoded sequences, one

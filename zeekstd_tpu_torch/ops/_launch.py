@@ -13,6 +13,16 @@ P = ctypes.c_void_p
 I = ctypes.c_int
 L = ctypes.c_longlong
 
+# Device bytes a launch's allocations may take beyond their sizes: the
+# caching allocator rounds each up to 512 B, and hands a large one up to
+# 1 MiB more when it would leave less than that of a cached segment.
+ALLOC_SLACK = 16 << 20
+
+
+def padded_records(n: int) -> int:
+    """Rows of a record table of n records: a power of two, at least 8."""
+    return 1 << max((n - 1).bit_length(), 3)
+
 
 def kernel_fn(name: str, argtypes):
     """The launcher ``name`` of the kernel library (built on first use);

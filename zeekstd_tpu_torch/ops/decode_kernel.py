@@ -24,7 +24,9 @@ the reference's staging window (LITB + 128 bytes from the 128-byte row
 holding the record's first literal). On the card it runs in three stages
 (``csrc/wide_decode.cu``): an FSE pass per record, a scan per frame that
 writes one descriptor per output byte, and pointer jumping over the
-descriptors.
+descriptors. ``staged_decode`` allocates their scratch and launches them
+for either contract; the ring contract's wrapper (``ring_kernel``) uses it
+too.
 """
 
 from __future__ import annotations
@@ -33,7 +35,8 @@ import numpy as np
 import torch
 
 from . import launches
-from ._launch import I, P, check_cuda, check_rc, kernel_fn, ptr, stream
+from ._launch import (ALLOC_SLACK, I, P, check_cuda, check_rc, kernel_fn, padded_records,
+                      ptr, stream)
 
 KIND_SEQ = 0
 KIND_LIT = 1
@@ -110,7 +113,7 @@ def build_records(frames):
                 row[M_RLEBYTE] = b[2]
             recs.append(row)
     n = len(recs)
-    nrecp = 1 << max((n - 1).bit_length(), 3)
+    nrecp = padded_records(n)
     out = np.zeros((nrecp, META_COLS), np.int32)
     if recs:
         out[:n] = np.asarray(recs, np.int32)
@@ -311,25 +314,43 @@ def wide_plain(consts, meta, words, tables, lits, OUTB: int, LITB: int):
     return torch.from_numpy(out.copy()).to(dev), torch.from_numpy(meta_out).to(dev)
 
 
-def wide_stages(consts, meta, words, tables, lits, *, OUTB: int, LITB: int):
-    """Allocate the outputs and scratch of the CUDA wide decoder for these
-    CUDA inputs (see ``wide_decode``). Returns (out, meta_out, stages):
-    ``stages`` are ("fse", "scan", "resolve") launch functions, to run in
-    that order on the current stream; each raises if its launcher reports
-    an error. Reads the total sequence count back from the card once."""
+def stage_bytes(F: int, OUTB: int, n_rec: int, n_seq: int) -> int:
+    """Device bytes of ``staged_decode`` for F frames of OUTB bytes, n_rec
+    records and n_seq sequences: two descriptor buffers, 8 B per byte of
+    F x OUTB; lls/mls/ofvs, 12 B per sequence; per padded record its meta
+    row (64 B, built per launch) and 32 B of sequence offsets and remaining
+    bits with their temporaries; meta_out; ``ALLOC_SLACK``."""
+    return (F * (OUTB * 8 + 512) + n_seq * 12 + padded_records(n_rec) * (META_COLS * 4 + 32)
+            + ALLOC_SLACK)
+
+
+def launch_bytes(F: int, OUTB: int, LROWS: int, n_rec: int, n_seq: int) -> int:
+    """Device bytes of a ``wide_decode`` launch: the literal pools, 4 B per
+    slot of F x LROWS x 128 and 1 B for the bytes they are staged as
+    before they are widened on the card; the output, 1 B per byte of F x
+    OUTB; ``stage_bytes``."""
+    return F * (LROWS * 128 * 5 + OUTB) + stage_bytes(F, OUTB, n_rec, n_seq)
+
+
+def staged_decode(contract, consts, meta, words, tables, pool, out, *, OUTB: int,
+                  scan_ints, pool_width: int, min_wb: int):
+    """Scratch and launches of the three stages of ``csrc/wide_decode.cu``
+    for ``contract`` ("wide" or "ring"), writing ``out`` (F x OUTB bytes)
+    from the literal pools ``pool`` (F rows of ``pool_width`` elements).
+    ``scan_ints`` are the scan launcher's contract arguments after OUTB.
+    Returns (meta_out, stages): ``stages`` are ("fse", "scan", "resolve")
+    launch functions, to run in that order on the current stream; each
+    raises if its launcher reports an error. Reads the total sequence count
+    back from the card once."""
     for name, t in (("consts", consts), ("meta", meta), ("words", words),
-                    ("tables", tables), ("lits", lits)):
+                    ("tables", tables), ("pool", pool)):
         check_cuda(name, t)
-    F, LROWS = lits.shape[0], lits.shape[1]
+    F = pool.shape[0]
     nrecp = meta.numel() // META_COLS
     nw, WB = words.shape[0], words.numel() // max(words.shape[0], 1)
-    if OUTB <= 0 or OUTB % 128 or LITB < 0 or LITB % 128:
-        raise ValueError("OUTB must be a positive multiple of 128, LITB a multiple of 128")
-    if nw < 1 or WB < 2 or tables.numel() < 512 or nrecp < 1:
-        raise ValueError("words needs a row of >= 2 words, tables and meta a row each")
-    if LROWS * 128 + LITB + 256 >= 1 << 31:
-        raise ValueError("literal pool too large for int32 descriptors")
-    dev = lits.device
+    if nw < 1 or WB < min_wb or tables.numel() < 512 or nrecp < 1:
+        raise ValueError(f"words needs a row of >= {min_wb} words, tables and meta a row each")
+    dev = pool.device
     m = meta.reshape(nrecp, META_COLS)
     nseq = torch.where(m[:, M_KIND] == KIND_SEQ, m[:, M_NSEQ].clamp(min=0), 0).to(torch.int64)
     ends = torch.cumsum(nseq, 0)
@@ -344,28 +365,46 @@ def wide_stages(consts, meta, words, tables, lits, *, OUTB: int, LITB: int):
     # buffer is written whole by the first jump round.
     desc_a = torch.full((F * OUTB,), -1, dtype=torch.int32, device=dev)
     desc_b = torch.empty(F * OUTB, dtype=torch.int32, device=dev)
-    out = torch.empty((F, OUTB // 128, 128), dtype=torch.uint8, device=dev)
     meta_out = torch.zeros((F, 128), dtype=torch.int32, device=dev)
+    label = f"{contract}_decode"
 
     def fse():
-        fn = kernel_fn("zk_wide_fse_launch", [P, P, I, P, I, I, P, I, P, P, P, P, P, P])
-        check_rc("wide_decode (fse)", fn(
+        fn = kernel_fn(f"zk_{contract}_fse_launch", [P, P, I, P, I, I, P, I, P, P, P, P, P, P])
+        check_rc(f"{label} (fse)", fn(
             ptr(consts), ptr(meta), nrecp, ptr(words), nw, WB, ptr(tables),
             tables.numel() // 512, ptr(seq_off), ptr(lls), ptr(mls), ptr(ofvs), ptr(rems),
             stream()))
 
     def scan():
-        fn = kernel_fn("zk_wide_scan_launch", [P, I, P, P, P, P, P, I, I, I, I, P, P, P])
-        check_rc("wide_decode (scan)", fn(
+        fn = kernel_fn(f"zk_{contract}_scan_launch",
+                       [P, I, P, P, P, P, P, I, I] + [I] * len(scan_ints) + [P, P, P])
+        check_rc(f"{label} (scan)", fn(
             ptr(meta), nrecp, ptr(seq_off), ptr(rems), ptr(lls), ptr(mls), ptr(ofvs),
-            F, OUTB, LITB, LROWS, ptr(desc_a), ptr(meta_out), stream()))
+            F, OUTB, *scan_ints, ptr(desc_a), ptr(meta_out), stream()))
 
     def resolve():
-        fn = kernel_fn("zk_wide_resolve_launch", [P, P, P, I, I, I, P, P])
-        check_rc("wide_decode (resolve)", fn(
-            ptr(desc_a), ptr(desc_b), ptr(lits), F, LROWS, OUTB, ptr(out), stream()))
+        fn = kernel_fn(f"zk_{contract}_resolve_launch", [P, P, P, I, I, I, P, P])
+        check_rc(f"{label} (resolve)", fn(
+            ptr(desc_a), ptr(desc_b), ptr(pool), F, pool_width, OUTB, ptr(out), stream()))
 
-    return out, meta_out, (("fse", fse), ("scan", scan), ("resolve", resolve))
+    return meta_out, (("fse", fse), ("scan", scan), ("resolve", resolve))
+
+
+def wide_stages(consts, meta, words, tables, lits, *, OUTB: int, LITB: int):
+    """Allocate the outputs and scratch of the CUDA wide decoder for these
+    CUDA inputs (see ``wide_decode``). Returns (out, meta_out, stages), as
+    ``staged_decode``."""
+    check_cuda("lits", lits)
+    F, LROWS = lits.shape[0], lits.shape[1]
+    if OUTB <= 0 or OUTB % 128 or LITB < 0 or LITB % 128:
+        raise ValueError("OUTB must be a positive multiple of 128, LITB a multiple of 128")
+    if LROWS * 128 + LITB + 256 >= 1 << 31:
+        raise ValueError("literal pool too large for int32 descriptors")
+    out = torch.empty((F, OUTB // 128, 128), dtype=torch.uint8, device=lits.device)
+    meta_out, stages = staged_decode("wide", consts, meta, words, tables, lits, out,
+                                     OUTB=OUTB, scan_ints=(LITB, LROWS), pool_width=LROWS,
+                                     min_wb=2)
+    return out, meta_out, stages
 
 
 def wide_decode(consts, meta, words, tables, lits, *, OUTB: int, LITB: int):

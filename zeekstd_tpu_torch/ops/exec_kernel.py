@@ -30,7 +30,8 @@ import numpy as np
 import torch
 
 from . import launches
-from ._launch import I, P, check_cuda, check_rc, kernel_fn, ptr, stream
+from ._launch import (ALLOC_SLACK, I, P, check_cuda, check_rc, kernel_fn, padded_records,
+                      ptr, stream)
 
 # Record kinds
 KIND_SEQ = 0  # sequences slice of a compressed block (+ trail at block end)
@@ -98,7 +99,7 @@ def build_records(frames, sbd: int):
                 recs.append([f, KIND_RLE, 0, 0, count,
                              fflags | F_BLOCK_START | F_BLOCK_END, byte, 0])
     n = len(recs)
-    nrecp = 1 << max((n - 1).bit_length(), 3)
+    nrecp = padded_records(n)
     out = np.zeros((nrecp, META_COLS), np.int32)
     if recs:
         out[:n] = np.asarray(recs, np.int32)
@@ -207,6 +208,14 @@ def exec_plain(meta, lls, mls, ofvs, lits, OUTB: int, LITB: int, SBd: int):
     out = np.frombuffer(b"".join(outs), np.uint8).reshape(F, OUTB // 128, 128)
     dev = lits.device
     return torch.from_numpy(out.copy()).to(dev), torch.from_numpy(meta_out).to(dev)
+
+
+def launch_bytes(F: int, OUTB: int, LROWS: int, n_rec: int) -> int:
+    """Device bytes of a ``serial_exec`` launch: the literal pools, 4 B per
+    slot of F x LROWS x 128; the meta rows of n_rec records, padded; the
+    output, 1 B per byte of F x OUTB; meta_out; ``ALLOC_SLACK``."""
+    return (F * (LROWS * 128 * 4 + OUTB + 512) + padded_records(n_rec) * META_COLS * 4
+            + ALLOC_SLACK)
 
 
 def serial_exec(meta, lls, mls, ofvs, lits, *, OUTB: int, LITB: int, SBd: int):

@@ -5,11 +5,16 @@ Port of ``zeekstd_tpu/ops/ring_kernel.py``. The computation is
 ``decode_kernel``'s (same meta layout, table rows and repeat-offset
 rules); the contract differs: the literal pool arrives as packed LE words
 (F, LW) and the output leaves as LE words (F, OUTB/4). The TPU kernel
-kept the last 512 KiB of output in a scalar-memory ring; on the card
-every frame writes its own output row directly, so no ring is needed,
-but the route keeps the reference's rules: a literal run may not exceed
-its block's literal budget, and an offset over 512 KiB marks the frame
-bad.
+kept the last 512 KiB of output in a scalar-memory ring; on the card no
+ring is needed, but the route keeps the reference's rules: a literal run
+may not exceed its block's literal budget, an offset over 512 KiB marks
+the frame bad, and a sequence reads its bits from the four words below
+its start.
+
+On the card it runs the wide decoder's three stages
+(``csrc/wide_decode.cu``, ``decode_kernel.staged_decode``) in their ring
+instances: an FSE pass per record, a scan per frame that writes one
+descriptor per output byte, and pointer jumping over the descriptors.
 """
 
 from __future__ import annotations
@@ -18,8 +23,8 @@ import numpy as np
 import torch
 
 from . import launches
-from ._launch import I, P, check_cuda, check_rc, kernel_fn, ptr, stream
-from .decode_kernel import META_COLS, RING, decode_plain
+from ._launch import check_cuda
+from .decode_kernel import RING, decode_plain, stage_bytes, staged_decode
 
 RING_LOG = 19
 assert RING == 1 << RING_LOG
@@ -36,27 +41,41 @@ def ring_plain(consts, meta, words, tables, lit_words, OUTB: int):
             torch.from_numpy(meta_out).to(dev))
 
 
+def launch_bytes(F: int, OUTB: int, LW: int, n_rec: int, n_seq: int) -> int:
+    """Device bytes of a ``ring_decode`` launch: the literal words, 4 B per
+    word of F x LW; the output, 1 B per byte of F x OUTB;
+    ``decode_kernel.stage_bytes``."""
+    return F * (LW * 4 + OUTB) + stage_bytes(F, OUTB, n_rec, n_seq)
+
+
+def ring_stages(consts, meta, words, tables, lit_words, *, OUTB: int):
+    """Allocate the outputs and scratch of the CUDA ring decoder for these
+    CUDA inputs (see ``ring_decode``). Returns (out, meta_out, stages), as
+    ``decode_kernel.staged_decode``."""
+    check_cuda("lit_words", lit_words)
+    F, LW = lit_words.shape
+    if OUTB <= 0 or OUTB % 4:
+        raise ValueError("OUTB must be a positive multiple of 4")
+    if LW * 4 + 256 >= 1 << 31:
+        raise ValueError("literal pool too large for int32 descriptors")
+    out = torch.empty((F, OUTB // 4), dtype=torch.int32, device=lit_words.device)
+    meta_out, stages = staged_decode("ring", consts, meta, words, tables, lit_words, out,
+                                     OUTB=OUTB, scan_ints=(LW,), pool_width=LW, min_wb=4)
+    return out, meta_out, stages
+
+
 def ring_decode(consts, meta, words, tables, lit_words, *, OUTB: int):
     """Decode every frame. consts int32[4, 64], meta int32[NRECP,
-    META_COLS], words int32[nw, WB], tables int32[Tp, 512], lit_words
-    int32[F, LW] (each frame's literal pool as LE words). Returns (out
-    int32[F, OUTB/4] LE words, meta_out int32[F, 128] = total, bad flag,
-    literals used); output bytes are exact up to the total."""
+    META_COLS], words int32[nw, WB] (WB >= 4), tables int32[Tp, 512],
+    lit_words int32[F, LW] (each frame's literal pool as LE words).
+    Returns (out int32[F, OUTB/4] LE words, meta_out int32[F, 128] =
+    total, bad flag, literals used); output bytes are exact up to the
+    total. Records are frame-major with a frame's F_FRAME_START on its
+    first record (``decode_kernel.build_records``)."""
     if lit_words.device.type == "cpu":
         return ring_plain(consts, meta, words, tables, lit_words, OUTB)
-    for name, t in (("consts", consts), ("meta", meta), ("words", words),
-                    ("tables", tables), ("lit_words", lit_words)):
-        check_cuda(name, t)
-    F, LW = lit_words.shape
-    dev = lit_words.device
-    out = torch.zeros((F, OUTB // 4), dtype=torch.int32, device=dev)
-    meta_out = torch.zeros((F, 128), dtype=torch.int32, device=dev)
-    fn = kernel_fn("zk_ring_decode_launch",
-                   [P, P, I, P, I, I, P, I, P, I, I, I, P, P, P])
-    rc = fn(ptr(consts), ptr(meta), meta.numel() // META_COLS, ptr(words),
-            words.shape[0], words.numel() // words.shape[0], ptr(tables),
-            tables.numel() // 512, ptr(lit_words), F, LW, OUTB,
-            ptr(out), ptr(meta_out), stream())
+    out, meta_out, stages = ring_stages(consts, meta, words, tables, lit_words, OUTB=OUTB)
+    for _name, launch in stages:
+        launch()
     launches["ring_decode"] += 1
-    check_rc("ring_decode", rc)
     return out, meta_out

@@ -196,6 +196,35 @@ def frame_bounds(plans, seek_table):
     return bounds
 
 
+# Device bytes one decode launch may allocate for its outputs and scratch:
+# every decode route but doubling splits an archive's frames into launch
+# groups under it.
+LAUNCH_BYTES = 4 << 30
+
+
+def launch_groups(maxed, summed, launch_bytes):
+    """Split frames into contiguous launch groups [(lo, hi), ...], in order.
+
+    ``maxed`` and ``summed`` hold a count or a row of counts per frame. A
+    launch of n frames is laid out at the group's largest value of each
+    ``maxed`` column (its output bound, its literal pool) and allocates
+    ``launch_bytes(n, *maxes, *sums)`` device bytes, with the ``summed``
+    columns (its records, its sequences) summed over the group. Each group
+    is the longest run of frames from its first whose launch stays within
+    ``LAUNCH_BYTES``; a frame over it alone gets a group of its own."""
+    maxed, summed = (np.asarray(c, np.int64).reshape(len(c), -1) for c in (maxed, summed))
+    groups, lo = [], 0
+    big, tot = maxed[0], summed[0]
+    for i in range(1, len(maxed)):
+        big_i, tot_i = np.maximum(big, maxed[i]), tot + summed[i]
+        if launch_bytes(i + 1 - lo, *big_i.tolist(), *tot_i.tolist()) > LAUNCH_BYTES:
+            groups.append((lo, i))
+            lo, big_i, tot_i = i, maxed[i], summed[i]
+        big, tot = big_i, tot_i
+    groups.append((lo, len(maxed)))
+    return groups
+
+
 def _words_from_bytes(payload: bytes, word_bound: int):
     """Little-endian uint32 words + payload bit length (strips the sentinel)."""
     from .codec.bitstream import BackwardBitReader
