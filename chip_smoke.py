@@ -72,7 +72,9 @@ Phases (any failure raises; nothing is caught):
                doubling route.
   4c. timing - 5 warm level-3 decodes per route (checksums off, output
                on the card): median and spread in MiB/s, the fenced phase
-               split, and the four new kernels' rows.
+               split, and the four new kernels' rows; the exec kernel's two
+               stages (scan, pointer jumping) timed apart on the serial
+               route's inputs.
 
 Prints the card's name and power limit, one JSON line with the kernel
 table, and as its last line {"ok": true, "device": {...}}. With --out
@@ -417,10 +419,10 @@ def time_kernel(name, a, k, m, reps=5):
 
 
 def stage_ms(stages_fn, a, k, reps=5):
-    """Mean CUDA-event milliseconds of each stage of a three-stage decoder
-    (``decode_kernel.wide_stages`` or ``ring_kernel.ring_stages``) on one
-    call's inputs, over ``reps`` runs after a warm one (stage launches made
-    here are not counted)."""
+    """Mean CUDA-event milliseconds of each stage of a staged kernel
+    (``decode_kernel.wide_stages``, ``ring_kernel.ring_stages`` or
+    ``exec_kernel.exec_stages``) on one call's inputs, over ``reps`` runs
+    after a warm one (stage launches made here are not counted)."""
     _out, _mo, stages = stages_fn(*a, **k)
     for _name, launch in stages:
         launch()
@@ -921,7 +923,7 @@ def main():
         "ring_decode": ("zeekstd_tpu_torch/csrc/wide_decode.cu",
                         "zeekstd_tpu/ops/ring_kernel.py:541"),
         "wide_decode": ("zeekstd_tpu_torch/csrc/wide_decode.cu", "zeekstd_tpu/ops/decode_kernel.py:388"),
-        "exec": ("zeekstd_tpu_torch/csrc/exec_kernel.cu", "zeekstd_tpu/ops/exec_kernel.py:372"),
+        "exec": ("zeekstd_tpu_torch/csrc/wide_decode.cu", "zeekstd_tpu/ops/exec_kernel.py:372"),
         "fse_decode": ("zeekstd_tpu_torch/csrc/fse_decode.cu",
                        "zeekstd_tpu/ops/entropy.py:199 (an XLA scan, not a pallas_call)"),
         "byte_histogram": ("zeekstd_tpu_torch/csrc/byte_kernels.cu",
@@ -973,9 +975,10 @@ def main():
             table.append(row)
         if name == "match":
             extra["match_timing"] = match_timing(mods.mk, a, k, ms)
-        if name in ("wide_decode", "ring_decode"):
-            wide = name == "wide_decode"
-            stages = stage_ms(mods.dk.wide_stages if wide else mods.rk.ring_stages, a, k)
+        stages_fn = {"wide_decode": mods.dk.wide_stages, "ring_decode": mods.rk.ring_stages,
+                     "exec": mods.ek.exec_stages}.get(name)
+        if stages_fn is not None:
+            stages = stage_ms(stages_fn, a, k)
             extra[f"{name.split('_')[0]}_stages_ms"] = stages
             log(f"[timing] {name} stages (phase {path} shapes, F={a[4].shape[0]}, "
                 f"OUTB={k['OUTB']}): " + ", ".join(f"{n} {t:.4f} ms" for n, t in stages.items()))

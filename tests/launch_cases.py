@@ -2,9 +2,9 @@
 
 An archive of uneven frames (``frame_spans``, 96 KiB in all, level 1) and,
 per decode route, its environment, the wrapper its launches go through,
-that wrapper's key in ``ops.launches``, and a ``plan.LAUNCH_BYTES`` under
-which the archive splits into groups of one and of several frames. Imports
-no JAX.
+that wrapper's key in ``ops.launches`` (None for the doubling route, whose
+executor is torch), and a ``plan.LAUNCH_BYTES`` under which the archive
+splits into groups of one and of several frames. Imports no JAX.
 """
 
 import numpy as np
@@ -13,6 +13,7 @@ from zeekstd_tpu_torch import archive, plan
 from zeekstd_tpu_torch.ops import decode_kernel as dk
 from zeekstd_tpu_torch.ops import exec_kernel as ek
 from zeekstd_tpu_torch.ops import ring_kernel as rk
+from zeekstd_tpu_torch.ops import seq_exec
 from zeekstd_tpu_torch.ops._launch import ALLOC_SLACK
 
 SPANS_KIB = (8, 8, 40, 8, 24, 8)
@@ -22,6 +23,8 @@ ROUTES = {
              ALLOC_SLACK + (4 << 20)),
     "serial": ({"ZEEKSTD_TPU_EXEC": "serial"}, (ek, "serial_exec"), "exec",
                ALLOC_SLACK + (40 << 20)),
+    "doubling": ({"ZEEKSTD_TPU_EXEC": "doubling"}, (seq_exec, "execute_sequences_batch"), None,
+                 ALLOC_SLACK + (8 << 20)),
 }
 
 

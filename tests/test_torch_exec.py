@@ -8,20 +8,44 @@
   offset, multi-frame batches.
 - ``exec_plain`` equals the JAX Pallas kernel in interpret mode (bytes
   over [0, total) and the three meta lanes) on three of those inputs.
+
+The cases (``CASES``, ``case_args``) import no JAX: ``test_torch_gpu.py``
+runs them through the CUDA executor on the card.
 """
 
 import numpy as np
 import pytest
 import torch
 
-pytest.importorskip("jax")
-
-from zeekstd_tpu.ops import exec_kernel as ref_ek
 from zeekstd_tpu_torch.ops import exec_kernel as ek
 
-from .test_exec_kernel import ref_execute, run_kernel, seq_rows
-
 LITB = 2048
+
+
+@pytest.fixture(scope="module")
+def ref():
+    """The JAX package's executor module and its tests' byte-serial
+    reference and interpret-mode runner (``tests/test_exec_kernel.py``)."""
+    pytest.importorskip("jax")
+    from zeekstd_tpu.ops import exec_kernel as ref_ek
+
+    from . import test_exec_kernel
+
+    return ref_ek, test_exec_kernel
+
+
+def seq_rows(seqs_per_row, width=None):
+    """seqs_per_row: list of lists of (ll, ml, ofv) (a copy of
+    ``tests/test_exec_kernel.seq_rows``)."""
+    width = width or max(max((len(r) for r in seqs_per_row), default=1), 8)
+    n = len(seqs_per_row)
+    ll = np.zeros((n, width), np.int32)
+    ml = np.zeros((n, width), np.int32)
+    ofv = np.zeros((n, width), np.int32)
+    for i, r in enumerate(seqs_per_row):
+        for j, (a, b, c) in enumerate(r):
+            ll[i, j], ml[i, j], ofv[i, j] = a, b, c
+    return ll, ml, ofv
 
 
 def _lits_tensor(lits_list, litb=LITB):
@@ -149,13 +173,37 @@ CASES = [
 ]
 
 
+def case_inputs(name):
+    """The inputs of case ``name``: [(frames_blocks, ll, ml, ofv,
+    lits_list, OUTB, SBd)], SBd resolved (four seeded trials for
+    multi_frame_random)."""
+    if name == "multi_frame_random":
+        rng = np.random.default_rng(42)
+        cases = [_random_frames(rng) for _ in range(4)]
+    else:
+        cases = [_case(name)]
+    return [(frames, ll, ml, ofv, lits_list, OUTB, SBd or ll.shape[1])
+            for frames, ll, ml, ofv, lits_list, OUTB, SBd in cases]
+
+
+def case_args(name):
+    """Case ``name`` as ``serial_exec`` calls: [(args on the CPU, kwargs)]."""
+    calls = []
+    for frames, ll, ml, ofv, lits_list, OUTB, SBd in case_inputs(name):
+        meta, _n = ek.build_records(frames, SBd)
+        args = [torch.from_numpy(a) for a in (meta, ll, ml, ofv)] + [_lits_tensor(lits_list)]
+        calls.append((args, dict(OUTB=OUTB, LITB=LITB, SBd=SBd)))
+    return calls
+
+
 @pytest.mark.parametrize("frames", [
     [[("lit", 5)], []],
     [[("seq", 0, 20, 40), ("rle", 7, 65), ("seq", 3, 5, 9)], [("lit", 0)]],
     [[("seq", 2, 8, 8), ("seq", 3, 9, 1), ("lit", 300)]],
 ])
 @pytest.mark.parametrize("sbd", [8, 32])
-def test_build_records_matches_reference(frames, sbd):
+def test_build_records_matches_reference(ref, frames, sbd):
+    ref_ek, _ = ref
     got, n = ek.build_records(frames, sbd)
     want, rn = ref_ek.build_records(frames, sbd)
     assert n == rn
@@ -163,14 +211,9 @@ def test_build_records_matches_reference(frames, sbd):
 
 
 @pytest.mark.parametrize("name", CASES)
-def test_exec_plain_equals_byte_serial_reference(name):
-    if name == "multi_frame_random":
-        rng = np.random.default_rng(42)
-        cases = [_random_frames(rng) for _ in range(4)]
-    else:
-        cases = [_case(name)]
-    for frames, ll, ml, ofv, lits_list, OUTB, SBd in cases:
-        SBd = SBd or ll.shape[1]
+def test_exec_plain_equals_byte_serial_reference(ref, name):
+    ref_execute = ref[1].ref_execute
+    for frames, ll, ml, ofv, lits_list, OUTB, SBd in case_inputs(name):
         meta, n_rec = ek.build_records(frames, SBd)
         exp, bads, litcs = ref_execute(meta, ll, ml, ofv, lits_list, n_rec, len(lits_list))
         out, meta_out = run_plain(meta, ll, ml, ofv, lits_list, OUTB, SBd)
@@ -184,12 +227,11 @@ def test_exec_plain_equals_byte_serial_reference(name):
 
 @pytest.mark.parametrize("name", ["cross_row_boundary_match", "repeat_offsets_full_matrix",
                                   "rep_history_through_raw_and_rle_blocks"])
-def test_exec_plain_equals_interpret_kernel(name):
-    frames, ll, ml, ofv, lits_list, OUTB, SBd = _case(name)
-    SBd = SBd or ll.shape[1]
+def test_exec_plain_equals_interpret_kernel(ref, name):
+    (frames, ll, ml, ofv, lits_list, OUTB, SBd), = case_inputs(name)
     meta, _n = ek.build_records(frames, SBd)
     out, meta_out = run_plain(meta, ll, ml, ofv, lits_list, OUTB, SBd)
-    ref_out, ref_meta = run_kernel(meta, ll, ml, ofv, lits_list, OUTB, SBd, LITB)
+    ref_out, ref_meta = ref[1].run_kernel(meta, ll, ml, ofv, lits_list, OUTB, SBd, LITB)
     np.testing.assert_array_equal(meta_out[:, :3], ref_meta[:, :3])
     for f in range(len(lits_list)):
         total = meta_out[f, 0]

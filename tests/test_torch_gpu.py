@@ -23,6 +23,7 @@ from zeekstd_tpu_torch.ops import reach_kernel as rch
 from zeekstd_tpu_torch.ops import ring_kernel as rk
 
 from . import launch_cases, match_edges, ring_cases
+from . import test_torch_exec as exec_cases
 
 pytestmark = pytest.mark.gpu
 
@@ -265,25 +266,44 @@ def test_wide_decode_output_smaller_than_frames(calls, OUTB):
     assert (mo0[:, 0] == OUTB).all() and mo0[:, 1].all()
 
 
-def _watch_group_memory(monkeypatch, records_mod):
-    """Per launch group, the device bytes allocated at its peak beyond those
-    allocated when it began (its ``records_mod.build_records`` call).
+# Per route, the function each launch group calls first.
+GROUP_START = {"ring": (dk, "build_records"), "wide": (dk, "build_records"),
+               "serial": (ek, "build_records"), "doubling": (decode_routes, "_slot_maps")}
+
+
+def _watch_group_memory(monkeypatch, route):
+    """Per launch group of ``route``, the device bytes allocated at its peak
+    beyond those allocated when it began (its ``GROUP_START`` call).
     Returns (peaks, close): ``close()`` ends the last group."""
     peaks, base = [], []
-    orig = records_mod.build_records
+    mod, attr = GROUP_START[route]
+    orig = getattr(mod, attr)
 
     def close():
         if len(base) > len(peaks):
             peaks.append(torch.cuda.max_memory_allocated() - base[-1])
 
-    def build(*a, **k):
+    def start(*a, **k):
         close()
         base.append(torch.cuda.memory_allocated())
         torch.cuda.reset_peak_memory_stats()
         return orig(*a, **k)
 
-    monkeypatch.setattr(records_mod, "build_records", build)
+    monkeypatch.setattr(mod, attr, start)
     return peaks, close
+
+
+def _count_calls(monkeypatch, wrapper):
+    """Count the calls of ``wrapper`` (module, attribute)."""
+    mod, attr = wrapper
+    orig, calls = getattr(mod, attr), [0]
+
+    def call(*a, **k):
+        calls[0] += 1
+        return orig(*a, **k)
+
+    monkeypatch.setattr(mod, attr, call)
+    return calls
 
 
 def _groups_within_counts(watched, peaks):
@@ -302,9 +322,10 @@ def _groups_within_counts(watched, peaks):
 @pytest.mark.parametrize("route", list(launch_cases.ROUTES))
 def test_routes_decode_in_launch_groups(card, route, monkeypatch):
     """The uneven archive of the CPU launch-group tests on each route with
-    ``plan.LAUNCH_BYTES`` small: one launch per group, each group's device
-    bytes within its count, and the bytes of one group."""
-    env, _wrapper, key, budget = launch_cases.ROUTES[route]
+    ``plan.LAUNCH_BYTES`` small: one launch per group (one executor call on
+    the doubling route), each group's device bytes within its count, and
+    the bytes of one group."""
+    env, wrapper, key, budget = launch_cases.ROUTES[route]
     for k, v in env.items():
         monkeypatch.setenv(k, v)
     blob, st, data, _spans = launch_cases.uneven("cpu")
@@ -316,24 +337,30 @@ def test_routes_decode_in_launch_groups(card, route, monkeypatch):
     one = rows()
     monkeypatch.setattr(plan, "LAUNCH_BYTES", budget)
     watched = launch_cases.watch_groups(monkeypatch)
-    peaks, close = _watch_group_memory(monkeypatch, ek if route == "serial" else dk)
+    peaks, close = _watch_group_memory(monkeypatch, route)
+    calls = _count_calls(monkeypatch, wrapper)
     ops.reset_launches()
     assert zt.decompress_archive(blob, st, device=card) == data
     close()
     _args, groups, peaks, costs = _groups_within_counts(watched, peaks)
     assert len(groups) >= 2 and any(hi - lo >= 2 for lo, hi in groups), groups
-    assert ops.launches[key] == len(groups)
+    assert calls[0] == len(groups)
+    if key is not None:
+        assert ops.launches[key] == len(groups)
     print(f"{route} launch groups {groups}: peak device bytes {peaks}, counted {costs}")
     assert rows() == one and b"".join(one) == data
 
 
-def test_uneven_archive_decodes_in_launch_groups(card, monkeypatch):
+@pytest.mark.parametrize("route", ["serial", "doubling"])
+def test_uneven_archive_decodes_in_launch_groups(card, route, monkeypatch):
     """One 48 MiB frame of random bytes (level 3: a 2 MiB window and a bound
-    over 4 MiB, so the serial route) among 300 frames of 64 KiB of text,
-    encoded apart and joined under one seek table. Laid out at the largest
-    frame in one launch the serial route would need far more than the
-    card's 80 GB; in launch groups it decodes exactly, each group within
-    its count of device bytes."""
+    over 4 MiB, so the serial route by default) among 300 frames of 64 KiB
+    of text, encoded apart and joined under one seek table, on the serial
+    route and on the doubling route (``ZEEKSTD_TPU_EXEC=doubling``). Laid
+    out at the largest frame in one launch either route would need far more
+    than the card's 80 GB (the doubling route did so until it took launch
+    groups, and ran out of memory); in launch groups it decodes exactly,
+    each group within its count of device bytes."""
     rng = np.random.default_rng(48)
     big = rng.integers(0, 256, 48 << 20, dtype=np.uint8).tobytes()
     small = [_data(150 << 16), _data(150 << 16)[::-1]]
@@ -345,19 +372,27 @@ def test_uneven_archive_decodes_in_launch_groups(card, monkeypatch):
             st.log_frame(part_st.frame_size_comp(i), part_st.frame_size_decomp(i))
     blob, data = b"".join(b for b, _st in parts), small[0] + big + small[1]
     assert st.num_frames == 301
+    if route == "doubling":
+        monkeypatch.setenv("ZEEKSTD_TPU_EXEC", "doubling")
     watched = launch_cases.watch_groups(monkeypatch)
-    peaks, close = _watch_group_memory(monkeypatch, ek)
+    peaks, close = _watch_group_memory(monkeypatch, route)
+    calls = _count_calls(monkeypatch, launch_cases.ROUTES[route][1])
     ops.reset_launches()
     fallbacks = decode_routes.serial_fallback_count()
     assert zt.decompress_archive(blob, st, device=card) == data
     close()
-    assert decode_routes.serial_fallback_count() == fallbacks + 1  # the fused bound guard
-    assert decode_routes._serial_fallbacks["reason"].startswith("frame bound")
+    if route == "serial":
+        assert decode_routes.serial_fallback_count() == fallbacks + 1  # the fused bound guard
+        assert decode_routes._serial_fallbacks["reason"].startswith("frame bound")
+    else:
+        assert decode_routes.serial_fallback_count() == fallbacks
     args, groups, peaks, costs = _groups_within_counts(watched, peaks)
-    assert len(groups) >= 2 and ops.launches["exec"] == len(groups)
+    assert len(groups) >= 2 and calls[0] == len(groups)
+    if route == "serial":
+        assert ops.launches["exec"] == len(groups)
     (one_launch,) = launch_cases.group_costs(args, [(0, 301)])
     assert one_launch > 80 << 30
-    print(f"launch groups {groups}: peak device bytes {peaks}, counted {costs}; "
+    print(f"{route} launch groups {groups}: peak device bytes {peaks}, counted {costs}; "
           f"one launch would count {one_launch}")
 
 
@@ -460,6 +495,105 @@ def test_exec_kernel_equals_plain(route_calls):
         ob, ob0 = out.reshape(F, -1).cpu(), out0.reshape(F, -1)
         for f, tot in enumerate(mo0[:, 0].tolist()):
             assert torch.equal(ob[f, :tot], ob0[f, :tot])
+
+
+def _exec_equals_plain(a, k):
+    """The CUDA executor (one launch of its scan and resolve) on ``a``
+    equals exec_plain exactly: meta_out columns 0-2 and each frame's bytes
+    up to its total. Returns meta_out."""
+    before = ops.launches["exec"]
+    out, mo = ek.serial_exec(*a, **k)
+    assert ops.launches["exec"] == before + 1
+    out0, mo0 = ek.exec_plain(*(t.cpu() for t in a), k["OUTB"], k["LITB"], k["SBd"])
+    assert torch.equal(mo[:, :3].cpu(), mo0[:, :3])
+    F = mo.shape[0]
+    ob, ob0 = out.reshape(F, -1).cpu(), out0.reshape(F, -1)
+    for f, tot in enumerate(mo0[:, 0].tolist()):
+        assert torch.equal(ob[f, :tot], ob0[f, :tot]), f
+    return mo0
+
+
+EXEC_MUTATIONS = 16
+
+
+def exec_mutation(i, a, k):
+    """Mutation ``i`` of ``EXEC_MUTATIONS`` (seeded) of a serial call's
+    records or sequence rows: rows out of range (0, 1), M_NSEQ negative or
+    over SBd or one short (2-4), M_LITN below what the slices use or one
+    short (5, 6), offsets of 0 or past the position (7-10), a literal run
+    past the record's window (11, 12), a match past OUTB (13), an OUTB below
+    the frames (14), and noise in 64 sequences (15). The records stay as
+    ``build_records`` makes them: a frame's F_FRAME_START only on its first
+    record, which the executor takes as given. Returns (args, kwargs)."""
+    meta, lls, mls, ofvs, lits = a
+    rng = np.random.default_rng(200 + i)
+    m = meta.cpu().reshape(-1, ek.META_COLS).clone()
+    ll, ml, of = (t.cpu().clone() for t in (lls, mls, ofvs))
+    seq = torch.nonzero(m[:, ek.M_KIND] == ek.KIND_SEQ).flatten().tolist()
+    r = seq[int(rng.integers(0, len(seq)))]
+    row, nseq = int(m[r, ek.M_ROW]), int(m[r, ek.M_NSEQ])
+    j = int(rng.integers(0, max(nseq, 1)))
+    ends = [q for q in seq if m[q, ek.M_FLAGS] & ek.F_BLOCK_END]
+    kw = dict(k)
+    if i < 2:
+        m[r, ek.M_ROW] = (-5, ll.shape[0] + 3)[i]
+    elif i < 5:
+        m[r, ek.M_NSEQ] = (-3, k["SBd"] + 7, nseq - 1)[i - 2]
+    elif i < 7:
+        q = ends[int(rng.integers(0, len(ends)))]
+        m[q, ek.M_LITN] -= (int(m[q, ek.M_LITN]) + 50, 1)[i - 5]
+    elif i == 7:  # offset 1, then rep1 - 1 = 0
+        j = max(j, 1) if nseq > 1 else j
+        of[row, j - 1] = 4
+        ll[row, j], of[row, j] = 5, 0
+    elif i < 11:
+        ll[row, j] = (0, ll[row, j], ll[row, j])[i - 8]
+        of[row, j] = (3, k["OUTB"] + 1003, -7)[i - 8]
+    elif i == 11:
+        ll[row, j] = k["LITB"] + 700
+    elif i == 12:
+        lit = torch.nonzero(m[:, ek.M_KIND] == ek.KIND_LIT).flatten().tolist() or ends
+        m[lit[0], ek.M_LITN] += k["LITB"] + 300
+    elif i == 13:
+        ml[row, j] = k["OUTB"] + 5
+    elif i == 14:
+        kw["OUTB"] = 4096
+    else:
+        for _ in range(64):
+            q = int(rng.integers(0, ll.shape[0])), int(rng.integers(0, ll.shape[1]))
+            ll[q], ml[q] = int(rng.integers(0, 300)), int(rng.integers(0, 300))
+            of[q] = int(rng.integers(-2, 5000))
+    dev = meta.device
+    return [m.reshape(meta.shape).to(dev), ll.to(dev), ml.to(dev), of.to(dev), lits], kw
+
+
+@pytest.mark.parametrize("i", range(EXEC_MUTATIONS))
+def test_exec_kernel_equals_plain_on_mutations(route_calls, i):
+    """Each mutation of ``exec_mutation`` of every serial call on the card:
+    the executor equals exec_plain exactly."""
+    for a, k in route_calls["exec"]:
+        _exec_equals_plain(*exec_mutation(i, a, k))
+
+
+@pytest.mark.parametrize("name", exec_cases.CASES)
+def test_exec_kernel_equals_plain_on_cases(card, name):
+    """The twelve cases of ``test_torch_exec.py`` (repeat offsets threaded
+    across blocks, overlapped matches, literal and RLE records, SBd
+    slicing, a bad offset, multi-frame batches) through the CUDA executor:
+    each equals exec_plain exactly."""
+    for a, k in exec_cases.case_args(name):
+        _exec_equals_plain([t.to(card) for t in a], k)
+
+
+def test_exec_kernel_refuses_outputs_past_int32_descriptors(card):
+    """An OUTB at which a descriptor (a position, or -257 - i for a literal
+    index i below it) would leave int32 raises the package's error before
+    anything is allocated or launched."""
+    (a, k), = exec_cases.case_args("simple_match")
+    before = ops.launches["exec"]
+    with pytest.raises(zt.ZeekstdError, match="corruption_detected"):
+        ek.serial_exec(*(t.to(card) for t in a), **dict(k, OUTB=1 << 31))
+    assert ops.launches["exec"] == before
 
 
 def test_fse_decode_kernel_equals_plain(route_calls):

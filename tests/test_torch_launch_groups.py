@@ -3,11 +3,12 @@
 ``plan.launch_groups`` splits an archive's frames into contiguous groups,
 each launch's outputs and scratch within ``plan.LAUNCH_BYTES``. Its unit
 tests come first. Then an archive of uneven frames (``frame_spans``, 96
-KiB in all) is decoded on the CPU on the ring, wide (``ZEEKSTD_TPU_RING=0``)
-and serial (``ZEEKSTD_TPU_EXEC=serial``) routes with the budget
-monkeypatched small, so that two or more groups form: the bytes must equal
-the JAX package's decode of the same archive, the route's kernel wrapper
-must be called once per group, ``decode_frames`` and ``return_device`` must
+KiB in all) is decoded on the CPU on the ring, wide (``ZEEKSTD_TPU_RING=0``),
+serial (``ZEEKSTD_TPU_EXEC=serial``) and doubling (``=doubling``) routes
+with the budget monkeypatched small, so that two or more groups form: the
+bytes must equal the JAX package's decode of the same archive, the route's
+kernel wrapper (the doubling route's torch executor) must be called once
+per group, ``decode_frames`` and ``return_device`` must
 give the bytes they give with one group, and a corrupted frame in the
 second group must raise the error the JAX package raises on its route of
 the same name.
@@ -160,7 +161,7 @@ def test_corrupt_frame_in_second_group_fails_like_reference(uneven, grouped, mon
     got = _outcome(lambda b: archive.decompress_archive(b, st, device="cpu"), bytes(bad), data)
     # The JAX package on the route of the same name (its fused kernels and
     # serial executor in interpret mode).
-    monkeypatch.setenv("ZEEKSTD_TPU_EXEC", "serial" if route == "serial" else "fused")
+    monkeypatch.setenv("ZEEKSTD_TPU_EXEC", route if route in ("serial", "doubling") else "fused")
     monkeypatch.setenv("ZEEKSTD_TPU_RING", "1" if route == "ring" else "0")
     want = _outcome(lambda b: ref_archive.tpu_decompress_archive(b, _ref_table(st)),
                     bytes(bad), data)

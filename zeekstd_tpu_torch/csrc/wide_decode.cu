@@ -1,6 +1,6 @@
-// Fused FSE decode and sequence execution for Hopper, for both contracts
-// of the reference, behind three launchers per contract that run in order
-// on one stream:
+// Fused FSE decode and sequence execution for Hopper, for the three
+// contracts of the reference, behind launchers that run in order on one
+// stream:
 //
 //   wide (ops/decode_kernel.py::wide_stages): zk_wide_fse_launch,
 //     zk_wide_scan_launch, zk_wide_resolve_launch. Replaces
@@ -13,21 +13,28 @@
 //     pallas_call at ring_kernel.py:541): literal pools as LE words in, LE
 //     words out, windows <= 512 KiB. Plain version:
 //     ops/ring_kernel.py::ring_plain.
+//   exec (ops/exec_kernel.py::exec_stages): zk_exec_scan_launch, then
+//     zk_wide_resolve_launch. Replaces zeekstd_tpu/ops/exec_kernel.py
+//     (_build / get_exec_kernel, the pallas_call at exec_kernel.py:372):
+//     executes sequences the fse_decode kernel already decoded, so it has
+//     no FSE stage; literals one int32 per byte in, bytes out. Plain
+//     version: ops/exec_kernel.py::exec_plain.
 //
-// meta_out row f holds (total, bad flag, literals used) for both.
+// meta_out row f holds (total, bad flag, literals used) for all three.
 //
 // The TPU kernels walk the records in order on one core, decoding each FSE
 // stream and copying each sequence's bytes as it goes. On this card that walk
 // is a chain of dependent loads per frame, and each match copy waits for the
 // bytes the frame stored just before. The work is split in three stages,
-// each a template on the contract (IS_RING):
+// each a template on the contract:
 //
 //   1. fse - one thread per KIND_SEQ record, 32 records per warp. Each
 //      thread decodes its block's sequences to raw (ll, ml, offset value)
 //      at the record's sequence offset (an exclusive sum of M_NSEQ that the
 //      wrapper computes on the card) and the bits left at the end. Bound by
 //      latency: each FSE state depends on the bits the previous sequence
-//      consumed; 32 chains per warp issue their loads together.
+//      consumed; 32 chains per warp issue their loads together. Wide and
+//      ring only.
 //   2. scan - one warp per frame walks the frame's records in order. It
 //      loads 32 decoded sequences at a time (one coalesced load per lane,
 //      the next 32 in flight) and hands them out by shuffles, threads the
@@ -48,18 +55,20 @@
 //      a terminal within OUTB hops; bytes past a frame's total keep the
 //      terminal 0 the wrapper fills the first buffer with. Bound by
 //      gathers; at 10 x 1 MiB frames each buffer is 40 MiB, within the
-//      50 MB L2.
+//      50 MB L2. The exec contract's pools are the wide contract's, so it
+//      runs the wide instance.
 //
 // Scratch, all allocated by the wrappers: 2 x 4 x F x OUTB bytes of
 // descriptors, 12 bytes per sequence and 8 per record (80 MiB + about 4 MiB
-// for 10 frames of 1 MiB). The kernels allocate nothing.
+// for 10 frames of 1 MiB; the exec contract has no sequence or record
+// scratch). The kernels allocate nothing.
 //
 // The arithmetic is the TPU kernels', hostile input included: a meta row
 // index outside the table reads the last row; decode-table entries are
 // indexed & 511 and codes & 63; the offset value is (1 << min(code, 31)) +
 // bits; the state-update bits after a block's last sequence are not
-// consumed; bit reads mask at most 31 bits. The contracts differ in four
-// places:
+// consumed; bit reads mask at most 31 bits. The wide and ring contracts
+// differ in four places:
 //   - bit reads: the wide contract reads every field from the two words
 //     around it (the word index clipped to [0, WB - 2]); the ring contract
 //     reads a sequence's fields and state updates from the four words at
@@ -75,9 +84,18 @@
 //     bad and copies from at most 512 KiB back.
 //   - the pools: int32 per byte (wide) or bytes of LE words (ring); the
 //     ring output is the same bytes, returned as LE words by the wrapper.
+// The exec contract is the wide scan with three differences:
+//   - its records: 8 meta columns; a KIND_SEQ record is a slice of at most
+//     SBd sequences of one block, at row clamp(M_ROW, 0, nrows - 1) of the
+//     (nrows, SBd) sequence arrays, its count clamped to [0, SBd];
+//   - its trailing literals: only on a block's last slice (F_BLOCK_END),
+//     what the block's budget leaves after every slice, counted from the
+//     literal cursor at its first slice (F_BLOCK_START);
+//   - no remaining-bits check (the sequences come decoded).
 //
 // Precondition (build_records): a frame's F_FRAME_START, if any, is on its
-// first record, so the scan writes each output position at most once.
+// first record, so the scan writes each output position at most once; the
+// M_LITN of a KIND_LIT or KIND_RLE record is not negative.
 
 #include <type_traits>
 
@@ -87,12 +105,18 @@ namespace {
 
 constexpr int LANES = 32;
 constexpr unsigned FULL = 0xFFFFFFFFu;
-constexpr int META_COLS = 16;
+
+enum class Contract { wide, ring, exec };
+
+// Meta columns; the exec contract's rows hold the first seven, with M_ROW
+// (its sequence row) in place of M_WROW.
+constexpr int META_COLS = 16, EXEC_META_COLS = 8;
 constexpr int M_FRAME = 0, M_KIND = 1, M_WROW = 2, M_NSEQ = 3, M_LITN = 4,
               M_FLAGS = 5, M_RLEBYTE = 6, M_TLL = 7, M_TOF = 8, M_TML = 9,
               M_LOGS = 10, M_STARTBIT = 11;
+constexpr int M_ROW = M_WROW;
 constexpr int KIND_SEQ = 0, KIND_LIT = 1, KIND_RLE = 2, KIND_NOP = 3;
-constexpr int F_FRAME_START = 1, F_FRAME_END = 2;
+constexpr int F_FRAME_START = 1, F_FRAME_END = 2, F_BLOCK_START = 4, F_BLOCK_END = 8;
 // Shuffle lanes of the per-record row the scan loads (lanes 0-15: meta).
 constexpr int COL_SEQ_OFF = 16, COL_REM = 17;
 
@@ -166,8 +190,9 @@ struct FseArgs {
   int* rems;                 // (nrecp,) bits left after each KIND_SEQ record
 };
 
-template <bool IS_RING>
+template <Contract C>
 __global__ void __launch_bounds__(LANES) fse_kernel(FseArgs a) {
+  constexpr bool IS_RING = C == Contract::ring;
   using Bits = typename std::conditional<IS_RING, RingBits, WideBits>::type;
   const int r = blockIdx.x * LANES + threadIdx.x;
   if (r >= a.nrecp) return;
@@ -236,18 +261,19 @@ __global__ void __launch_bounds__(LANES) fse_kernel(FseArgs a) {
 struct ScanArgs {
   const int* meta;
   int nrecp;
-  const int* seq_off;
-  const int* rems;
-  const int *lls, *mls, *ofvs;
+  const int* seq_off;  // wide and ring: (nrecp,); exec: unused
+  const int* rems;     // wide and ring: (nrecp,); exec: unused
+  const int *lls, *mls, *ofvs;  // wide and ring: (total,); exec: (nrows, SBd)
+  int nrows, SBd;               // exec only
   int OUTB;
-  int LITB, LROWS;  // the wide contract's literal window (unused on the ring)
+  int LITB, LROWS;  // the wide and exec contracts' literal window
   int nlit;         // literal pool bytes per frame; reads past it are 0
   int* desc;        // (F, OUTB)
   int* meta_out;  // (F, 128)
 };
 
 struct FrameState {
-  int pos, r1, r2, r3, bad, litcur;
+  int pos, r1, r2, r3, bad, litcur, blit;  // blit: exec only
 };
 
 // One sequence after the clamps: where its literals and match go.
@@ -314,9 +340,10 @@ __device__ __forceinline__ void put_sequences(int* d, const SeqSpan& q, int nlit
 // One sequence of a KIND_SEQ record, with the reference's repeat-offset
 // rules (RFC 8878 3.1.1.3.2.1.1) and hostile-input clamps: advances the
 // frame state and returns where the sequence's bytes go.
-template <bool IS_RING>
+template <Contract C>
 __device__ __forceinline__ SeqSpan scan_sequence(const ScanArgs& a, int lit_lim,
                                                  FrameState& s, int ll, int ml, int ofv) {
+  constexpr bool IS_RING = C == Contract::ring;
   const int ridx = ofv > 3 ? 0 : ofv + (ll == 0 ? 1 : 0);
   const int off = ofv > 3 ? ofv - 3
                   : ridx == 1 ? s.r1 : ridx == 2 ? s.r2 : ridx == 3 ? s.r3 : s.r1 - 1;
@@ -340,40 +367,57 @@ __device__ __forceinline__ SeqSpan scan_sequence(const ScanArgs& a, int lit_lim,
   return q;
 }
 
-template <bool IS_RING>
+template <Contract C>
 __global__ void __launch_bounds__(LANES) scan_kernel(ScanArgs a) {
+  constexpr bool IS_RING = C == Contract::ring;
+  constexpr int MC = C == Contract::exec ? EXEC_META_COLS : META_COLS;
   const int f = blockIdx.x;
   const int lane = threadIdx.x;
   int* d = a.desc + (long long)f * a.OUTB;
   const int nlit = a.nlit;
   const int lrws = a.LITB / 128 + 1;
-  FrameState s{0, 1, 4, 8, 0, 0};
+  FrameState s{0, 1, 4, 8, 0, 0, 0};
   for (int r0 = 0; r0 < a.nrecp; r0 += LANES) {
     // The records of this frame among the next 32, in order.
     const int rr = r0 + lane;
-    const int* mr = a.meta + (long long)rr * META_COLS;
+    const int* mr = a.meta + (long long)rr * MC;
     unsigned hits = __ballot_sync(
         FULL, rr < a.nrecp && mr[M_KIND] != KIND_NOP && mr[M_FRAME] == f);
     while (hits) {
       const int r = r0 + __ffs(hits) - 1;
       hits &= hits - 1;
-      const int v = lane < META_COLS ? a.meta[(long long)r * META_COLS + lane]
-                    : lane == COL_SEQ_OFF ? a.seq_off[r]
-                    : lane == COL_REM ? a.rems[r] : 0;
+      int v;
+      if constexpr (C == Contract::exec) {
+        v = lane < MC ? a.meta[(long long)r * MC + lane] : 0;
+      } else {
+        v = lane < MC ? a.meta[(long long)r * MC + lane]
+            : lane == COL_SEQ_OFF ? a.seq_off[r]
+            : lane == COL_REM ? a.rems[r] : 0;
+      }
       const int kind = __shfl_sync(FULL, v, M_KIND);
       const int flags = __shfl_sync(FULL, v, M_FLAGS);
       const int litn = __shfl_sync(FULL, v, M_LITN);
-      if (flags & F_FRAME_START) s = FrameState{0, 1, 4, 8, 0, 0};
+      if (flags & F_FRAME_START) s = FrameState{0, 1, 4, 8, 0, 0, 0};
+      if constexpr (C == Contract::exec) {
+        if (flags & F_BLOCK_START) s.blit = s.litcur;
+      }
       const int litcur0 = s.litcur;
       // The record's literal limit, fixed where it starts: the block's
       // budget (ring), or LITB + 128 bytes from the 128-byte row holding its
-      // first literal (wide).
+      // first literal (wide, exec).
       const int lit_lim = IS_RING ? litcur0 + litn
                                   : min(litcur0 / 128, a.LROWS - lrws) * 128 + a.LITB + 128;
       if (kind == KIND_SEQ) {
-        const int nseq = __shfl_sync(FULL, v, M_NSEQ);
-        const long long base = __shfl_sync(FULL, v, COL_SEQ_OFF);
-        const int rem = __shfl_sync(FULL, v, COL_REM);
+        int nseq, rem = 0;
+        long long base;
+        if constexpr (C == Contract::exec) {
+          nseq = min(max(__shfl_sync(FULL, v, M_NSEQ), 0), a.SBd);
+          base = (long long)min(max(__shfl_sync(FULL, v, M_ROW), 0), a.nrows - 1) * a.SBd;
+        } else {
+          nseq = __shfl_sync(FULL, v, M_NSEQ);
+          base = __shfl_sync(FULL, v, COL_SEQ_OFF);
+          rem = __shfl_sync(FULL, v, COL_REM);
+        }
         int nx_ll = 0, nx_ml = 0, nx_ofv = 0;
         if (lane < nseq) {
           nx_ll = a.lls[base + lane];
@@ -391,24 +435,37 @@ __global__ void __launch_bounds__(LANES) scan_kernel(ScanArgs a) {
           const int cnt = min(LANES, nseq - j0);
           SeqSpan mine{0, 0, 0, 0, 1};
           for (int q = 0; q < cnt; ++q) {
-            const SeqSpan o = scan_sequence<IS_RING>(a, lit_lim, s, __shfl_sync(FULL, my_ll, q),
-                                            __shfl_sync(FULL, my_ml, q),
-                                            __shfl_sync(FULL, my_ofv, q));
+            const SeqSpan o = scan_sequence<C>(a, lit_lim, s, __shfl_sync(FULL, my_ll, q),
+                                               __shfl_sync(FULL, my_ml, q),
+                                               __shfl_sync(FULL, my_ofv, q));
             if (lane == q) mine = o;
           }
           put_sequences(d, mine, nlit);
         }
-        // The stream must land on exactly zero remaining bits; what the
-        // block's literal budget leaves after its sequences trails them.
-        s.bad |= rem != 0;
-        const int trail = litn - (s.litcur - litcur0);
-        s.bad |= trail < 0;
-        int trail_c = min(max(trail, 0), a.OUTB - s.pos);
-        if (!IS_RING) trail_c = min(trail_c, max(lit_lim - s.litcur, 0));
-        s.bad |= trail_c != max(trail, 0);
-        put_lits(d, s.pos, s.litcur, 0, trail_c, nlit);
-        s.pos += trail_c;
-        s.litcur += trail_c;
+        if constexpr (C == Contract::exec) {
+          // After a block's last slice, what the block's literal budget
+          // leaves after every slice trails them.
+          const int trail = (flags & F_BLOCK_END) ? litn - (s.litcur - s.blit) : 0;
+          s.bad |= trail < 0;
+          const int trail_c =
+              min(min(max(trail, 0), a.OUTB - s.pos), max(lit_lim - s.litcur, 0));
+          s.bad |= trail_c != max(trail, 0);
+          put_lits(d, s.pos, s.litcur, 0, trail_c, nlit);
+          s.pos += trail_c;
+          s.litcur += trail_c;
+        } else {
+          // The stream must land on exactly zero remaining bits; what the
+          // block's literal budget leaves after its sequences trails them.
+          s.bad |= rem != 0;
+          const int trail = litn - (s.litcur - litcur0);
+          s.bad |= trail < 0;
+          int trail_c = min(max(trail, 0), a.OUTB - s.pos);
+          if (!IS_RING) trail_c = min(trail_c, max(lit_lim - s.litcur, 0));
+          s.bad |= trail_c != max(trail, 0);
+          put_lits(d, s.pos, s.litcur, 0, trail_c, nlit);
+          s.pos += trail_c;
+          s.litcur += trail_c;
+        }
       } else if (kind == KIND_LIT) {
         int litn_w = min(litn, a.OUTB - s.pos);
         if (!IS_RING) litn_w = min(litn_w, max(lit_lim - litcur0, 0));
@@ -483,7 +540,7 @@ gather_kernel(const int* __restrict__ desc, const Lit* __restrict__ lits,
   }
 }
 
-template <bool IS_RING>
+template <Contract C>
 int fse_launch(const void* consts, const void* meta, int nrecp, const void* words, int nw,
                int WB, const void* tables, int ntables, const void* seq_off, void* lls,
                void* mls, void* ofvs, void* rems, void* stream) {
@@ -491,20 +548,21 @@ int fse_launch(const void* consts, const void* meta, int nrecp, const void* word
                   WB, (const int*)tables, ntables, (const int*)seq_off, (int*)lls,
                   (int*)mls, (int*)ofvs, (int*)rems};
   if (nrecp > 0) {
-    fse_kernel<IS_RING>
+    fse_kernel<C>
         <<<(nrecp + LANES - 1) / LANES, LANES, 0, (cudaStream_t)stream>>>(a);
   }
   return zk_last_error();
 }
 
-template <bool IS_RING>
+template <Contract C>
 int scan_launch(const void* meta, int nrecp, const void* seq_off, const void* rems,
-                const void* lls, const void* mls, const void* ofvs, int F, int OUTB,
-                int LITB, int LROWS, int nlit, void* desc, void* meta_out, void* stream) {
+                const void* lls, const void* mls, const void* ofvs, int nrows, int SBd, int F,
+                int OUTB, int LITB, int LROWS, int nlit, void* desc, void* meta_out,
+                void* stream) {
   const ScanArgs a{(const int*)meta, nrecp, (const int*)seq_off, (const int*)rems,
-                   (const int*)lls, (const int*)mls, (const int*)ofvs, OUTB, LITB, LROWS,
-                   nlit, (int*)desc, (int*)meta_out};
-  if (F > 0) scan_kernel<IS_RING><<<F, LANES, 0, (cudaStream_t)stream>>>(a);
+                   (const int*)lls, (const int*)mls, (const int*)ofvs, nrows, SBd, OUTB, LITB,
+                   LROWS, nlit, (int*)desc, (int*)meta_out};
+  if (F > 0) scan_kernel<C><<<F, LANES, 0, (cudaStream_t)stream>>>(a);
   return zk_last_error();
 }
 
@@ -539,7 +597,7 @@ extern "C" int zk_wide_fse_launch(const void* consts, const void* meta, int nrec
                                   const void* words, int nw, int WB, const void* tables,
                                   int ntables, const void* seq_off, void* lls, void* mls,
                                   void* ofvs, void* rems, void* stream) {
-  return fse_launch<false>(consts, meta, nrecp, words, nw, WB, tables, ntables, seq_off, lls,
+  return fse_launch<Contract::wide>(consts, meta, nrecp, words, nw, WB, tables, ntables, seq_off, lls,
                            mls, ofvs, rems, stream);
 }
 
@@ -547,8 +605,8 @@ extern "C" int zk_wide_scan_launch(const void* meta, int nrecp, const void* seq_
                                    const void* rems, const void* lls, const void* mls,
                                    const void* ofvs, int F, int OUTB, int LITB, int LROWS,
                                    void* desc, void* meta_out, void* stream) {
-  return scan_launch<false>(meta, nrecp, seq_off, rems, lls, mls, ofvs, F, OUTB, LITB, LROWS,
-                            LROWS * 128, desc, meta_out, stream);
+  return scan_launch<Contract::wide>(meta, nrecp, seq_off, rems, lls, mls, ofvs, 0, 0, F, OUTB, LITB,
+                           LROWS, LROWS * 128, desc, meta_out, stream);
 }
 
 extern "C" int zk_wide_resolve_launch(void* desc_a, void* desc_b, const void* lits, int F,
@@ -563,7 +621,7 @@ extern "C" int zk_ring_fse_launch(const void* consts, const void* meta, int nrec
                                   const void* words, int nw, int WB, const void* tables,
                                   int ntables, const void* seq_off, void* lls, void* mls,
                                   void* ofvs, void* rems, void* stream) {
-  return fse_launch<true>(consts, meta, nrecp, words, nw, WB, tables, ntables, seq_off, lls,
+  return fse_launch<Contract::ring>(consts, meta, nrecp, words, nw, WB, tables, ntables, seq_off, lls,
                           mls, ofvs, rems, stream);
 }
 
@@ -571,12 +629,27 @@ extern "C" int zk_ring_scan_launch(const void* meta, int nrecp, const void* seq_
                                    const void* rems, const void* lls, const void* mls,
                                    const void* ofvs, int F, int OUTB, int LW, void* desc,
                                    void* meta_out, void* stream) {
-  return scan_launch<true>(meta, nrecp, seq_off, rems, lls, mls, ofvs, F, OUTB, 0, 0, LW * 4,
-                           desc, meta_out, stream);
+  return scan_launch<Contract::ring>(meta, nrecp, seq_off, rems, lls, mls, ofvs, 0, 0, F, OUTB, 0, 0,
+                           LW * 4, desc, meta_out, stream);
 }
 
 extern "C" int zk_ring_resolve_launch(void* desc_a, void* desc_b, const void* lit_words,
                                       int F, int LW, int OUTB, void* out, void* stream) {
   return resolve_launch(desc_a, desc_b, (const uint8_t*)lit_words, (long long)LW * 4, F, OUTB,
                         out, stream);
+}
+
+// Exec contract: meta int32[nrecp, 8], lls/mls/ofvs int32[nrows, SBd]
+// (nrows >= 1), the wide contract's pools int32[F, LROWS, 128] and output
+// uint8[F, OUTB]; the resolve is zk_wide_resolve_launch. A literal index
+// never exceeds the position it is written to, so the descriptors hold any
+// OUTB below 2^31 - 256 and the pool size passes clipped to int.
+extern "C" int zk_exec_scan_launch(const void* meta, int nrecp, const void* lls,
+                                   const void* mls, const void* ofvs, int nrows, int SBd, int F,
+                                   int OUTB, int LITB, int LROWS, void* desc, void* meta_out,
+                                   void* stream) {
+  const long long nlit = (long long)LROWS * 128;
+  return scan_launch<Contract::exec>(meta, nrecp, nullptr, nullptr, lls, mls, ofvs, nrows, SBd, F, OUTB,
+                           LITB, LROWS, nlit < 0x7FFFFFFF ? (int)nlit : 0x7FFFFFFF, desc,
+                           meta_out, stream);
 }

@@ -23,13 +23,15 @@ Then:
             ``serial_fallback_count``.
   doubling  dec.rep_carry (the host's sequential repeat-offset fix, only
             for frames that need it), dec.layout (run segments of the
-            per-frame triple and literal maps), dec.exec_dispatch (the
-            maps, then pointer doubling in torch, ``ops/seq_exec.py``),
-            dec.pull+verify. Every copy reads an earlier byte of its
-            frame, so a frame of at most out_bound bytes resolves in
-            ceil(log2(out_bound)) doubling passes; the reference's shallow
-            first pass, its escalation and its host decode of unresolved
-            frames have nothing left to do here.
+            per-frame triple and literal maps, and each launch group's
+            slot map), dec.exec_dispatch (the literal map, then pointer
+            doubling in torch, ``ops/seq_exec.py``, one call per group of
+            frames under ``plan.LAUNCH_BYTES``), dec.pull+verify. Every
+            copy reads an earlier byte of its frame, so a frame of at most
+            out_bound bytes resolves in ceil(log2(out_bound)) doubling
+            passes; the reference's shallow first pass, its escalation and
+            its host decode of unresolved frames have nothing left to do
+            here.
 ``decompress_frame`` on either route is the doubling route over its one
 frame, a prefix riding as a leading literal run.
 """
@@ -435,23 +437,66 @@ def _rep_carry(lay, hasrep_dev, lls_b, ofvs_b, offs_b, dev):
 def _triple_pools(lls_b, mls_b, offs_b, nseq_v, chunk_v, c_ll, c_ml, c_of, NB):
     """The virtual (ll, ml, off) pool: [decoded slots | per-block trailing
     literal runs | host constant pseudo-sequences]; returns the three
-    pools and the padding slot (consts[0] = (0, 0, 1))."""
+    pools, the padding slot (consts[0] = (0, 0, 1)) and each block's output
+    bytes (its literal budget plus its match lengths)."""
     seq_bound = lls_b.shape[1]
     k = torch.arange(seq_bound, device=lls_b.device)[None, :]
     mask = k < nseq_v[:, None]
     lls = lls_b[:NB].to(torch.int64)
+    mls = mls_b[:NB].to(torch.int64)
     used = torch.where(mask, lls, 0).sum(dim=1)
+    blk_out = chunk_v + torch.where(mask, mls, 0).sum(dim=1)
     trail = chunk_v - used
     zero_t = torch.zeros_like(trail)
     ll_pool = torch.cat([lls.reshape(-1), trail, c_ll])
-    ml_pool = torch.cat([mls_b[:NB].to(torch.int64).reshape(-1), zero_t, c_ml])
+    ml_pool = torch.cat([mls.reshape(-1), zero_t, c_ml])
     of_pool = torch.cat([offs_b[:NB].to(torch.int64).reshape(-1), zero_t + 1, c_of])
-    return ll_pool, ml_pool, of_pool, ll_pool.shape[0] - c_ll.shape[0]
+    return ll_pool, ml_pool, of_pool, ll_pool.shape[0] - c_ll.shape[0], blk_out
+
+
+def _slot_maps(runs, nslots, pools, pad_slot: int, const_base: int, dev):
+    """One launch group's (ll, ml, off) rows, int64[n, S] each (S the
+    group's largest slot count rounded up to a power of two, at least 32):
+    each frame's slot runs (start, pool index) mapped through the virtual
+    pools, the padding slot past its slots."""
+    S = _pow2(max(nslots), 5)
+    SEGS = _pow2(max((len(r) for r in runs), default=1), 2)
+    seq_dest = np.full((len(runs), SEGS), S, np.int64)  # S = dropped sentinel
+    seq_base = np.full((len(runs), SEGS), const_base, np.int64)
+    for fi, r in enumerate(runs):
+        seq_dest[fi, : len(r)] = r[:, 0]
+        seq_base[fi, : len(r)] = r[:, 1]
+    st = from_reference_arrays(dev, seq_dest=seq_dest, seq_base=seq_base,
+                               nslots=np.asarray(nslots, np.int64))
+    map_seq = _build_map(st["seq_dest"], st["seq_base"], st["nslots"], S, pad_slot)
+    map_seq.clamp_(0, pools[0].shape[0] - 1)
+    return tuple(pool[map_seq] for pool in pools)
+
+
+def _doubling_launch_bytes(n, bound, nslots, nlit, nsegl, nruns):
+    """Device bytes of one doubling launch group of n frames: the executor
+    (``seq_exec.launch_bytes``) at the group's output bound and slots; the
+    literal gather (``_gather_bytes``); per slot, 96 B of the slot map
+    while it is built, the (ll, ml, off) rows and the offset checks' sums;
+    per slot run, 64 B of its copies and the scatter's temporaries."""
+    S = _pow2(nslots, 5)
+    return (seq_exec.launch_bytes(n, _pow2(bound, 7), S)
+            + _gather_bytes(n, _pow2(nlit, 7), _pow2(nsegl, 2))
+            + n * (S * 96 + _pow2(nruns, 2) * 64))
 
 
 def _doubling_dispatch(blob, plans, lay, lls_b, mls_b, offs_b, ofvs_b, hasrep_dev, seq_bound,
                        dec_streams, huf_out_bound, verify_checksum, return_device, dev,
                        prefixes=None):
+    """Decode every planned frame by pointer doubling, in launch groups
+    under ``plan.LAUNCH_BYTES`` (see ``plan.launch_groups``). The (ll, ml,
+    off) pools, each frame's slot runs and literal segments are laid out
+    once; each group maps its frames' slots and literals and runs
+    ``seq_exec.execute_sequences_batch`` at its own slot count, literal
+    size and output bound, and is checked (and pulled) frame by frame
+    before the next group allocates. With ``return_device``, one (F,
+    out_bound) tensor at the archive's largest bound, filled group by
+    group."""
     F = len(plans)
     plens = [len(p) if p else 0 for p in prefixes] if prefixes else [0] * F
     with phase_timer("dec.rep_carry"):
@@ -509,15 +554,12 @@ def _doubling_dispatch(blob, plans, lay, lls_b, mls_b, offs_b, ofvs_b, hasrep_de
 
         # ``totals`` counts only literal-only blocks; frames with sequences
         # take their size from the frame header or, for headerless frames,
-        # from the decoded slots below.
-        S = _pow2(max(len(s) for s in seq_slots), 5)
-        L = _pow2(max(plan_mod.seg_len(s) for s in frame_segs), 7)
+        # from their decoded blocks below.
         static_np = _static_pool(lay.static + bytes(extra))
-        lit_dest, lit_base = _lit_segments(frame_segs, static_np.shape[0], huf_out_bound, L)
         nlit_f = np.asarray([plan_mod.seg_len(s) for s in frame_segs], np.int64)
 
-        # Per-frame run segments (dest, base) of the slot map; the dense
-        # maps are rebuilt on the device (scatter-add + cumsum).
+        # Per-frame run segments (start, pool index) of the slot map; each
+        # group's dense maps are rebuilt on the device (scatter-add + cumsum).
         seq_runs = []
         for slots in seq_slots:
             arr = np.asarray(slots, np.int64)
@@ -527,14 +569,7 @@ def _doubling_dispatch(blob, plans, lay, lls_b, mls_b, offs_b, ofvs_b, hasrep_de
             brk = np.nonzero(np.diff(arr) != 1)[0] + 1
             run_starts = np.concatenate([[0], brk])
             seq_runs.append(np.stack([run_starts, arr[run_starts]], axis=1))
-        SEGS = _pow2(max((len(r) for r in seq_runs), default=1), 2)
-        seq_dest = np.full((F, SEGS), S, np.int64)  # S = dropped sentinel
-        seq_base = np.full((F, SEGS), const_base, np.int64)
-        nslots = np.zeros(F, np.int64)
-        for fi, r in enumerate(seq_runs):
-            seq_dest[fi, : len(r)] = r[:, 0]
-            seq_base[fi, : len(r)] = r[:, 1]
-            nslots[fi] = len(seq_slots[fi])
+        nslots = [len(s) for s in seq_slots]
         consts_np = np.asarray(consts, np.int64)
 
         out_sizes = []
@@ -546,55 +581,71 @@ def _doubling_dispatch(blob, plans, lay, lls_b, mls_b, offs_b, ofvs_b, hasrep_de
 
         nseq_np = (np.asarray([d["nseq"] for d in lay.seq_blocks], np.int64)
                    if lay.seq_blocks else np.zeros(NB, np.int64))
-        st = from_reference_arrays(
-            dev, nseq=nseq_np, chunk=chunk_lits, c_ll=consts_np[:, 0], c_ml=consts_np[:, 1],
-            c_of=consts_np[:, 2], seq_dest=seq_dest, seq_base=seq_base, nslots=nslots,
-        )
-        ll_pool, ml_pool, of_pool, pad_slot = _triple_pools(
+        st = from_reference_arrays(dev, nseq=nseq_np, chunk=chunk_lits, c_ll=consts_np[:, 0],
+                                   c_ml=consts_np[:, 1], c_of=consts_np[:, 2])
+        *pools, pad_slot, blk_out = _triple_pools(
             lls_b, mls_b, offs_b, st["nseq"], st["chunk"], st["c_ll"], st["c_ml"],
             st["c_of"], NB)
-        map_seq = _build_map(st["seq_dest"], st["seq_base"], st["nslots"], S, pad_slot)
-        map_seq = map_seq.clamp(0, ll_pool.shape[0] - 1)
-        lls, mls, offs = ll_pool[map_seq], ml_pool[map_seq], of_pool[map_seq]
         if any(sz < 0 for sz in out_sizes) and lay.seq_blocks:
-            # Headerless frames: output sizes from the decoded slots.
-            tot_pre = (lls + mls).sum(dim=1).cpu().numpy()
-            out_sizes = [sz if sz >= 0 else int(t) for sz, t in zip(out_sizes, tot_pre)]
-        out_bound = _pow2(max(max(out_sizes), max(totals), 1), 7)
+            # Headerless frames: output sizes from the decoded blocks.
+            blk_np = blk_out.cpu().numpy()
+            out_sizes = [sz if sz >= 0 else tot + int(blk_np[rows].sum())
+                         for sz, tot, rows in zip(out_sizes, totals, lay.frame_rows)]
+        bounds = [max(sz, tot, 1) for sz, tot in zip(out_sizes, totals)]
+        lit_flat = _lit_source(static_np, dec_streams, dev)
+        groups = plan_mod.launch_groups(
+            list(zip(bounds, nslots, nlit_f, map(len, frame_segs), map(len, seq_runs))),
+            [()] * F, _doubling_launch_bytes)
 
-    with phase_timer("dec.exec_dispatch") as pt3:
-        lits = _gather_lits(lit_dest, lit_base, nlit_f, L,
-                            _lit_source(static_np, dec_streams, dev), dev)
-        out_dev, conv = seq_exec.execute_sequences_batch(
-            lits, lls, mls, offs, out_bound, n_doublings=max(1, (out_bound - 1).bit_length()))
-        # Corruption: a match reaching before the frame start, or a literal
-        # run over the block's budget (a negative trailing run).
-        pos_end = torch.cumsum(lls + mls, dim=1)
-        match_pos = pos_end - mls
-        bad = (((mls > 0) & (offs > match_pos)) | (lls < 0)).any(dim=1)
-        checks = torch.stack([pos_end[:, -1], bad.long(), conv.long()], dim=1)
-        pt3.fence(out_dev)
+    out_dev, sizes, parts = None, [], []
+    for lo, hi in groups:
+        with phase_timer("dec.layout"):
+            lls, mls, offs = _slot_maps(seq_runs[lo:hi], nslots[lo:hi], pools, pad_slot,
+                                        const_base, dev)
+            L = _pow2(int(nlit_f[lo:hi].max()), 7)
+            lit_dest, lit_base = _lit_segments(frame_segs[lo:hi], static_np.shape[0],
+                                               huf_out_bound, L)
+            out_bound = _pow2(max(bounds[lo:hi]), 7)
 
-    with phase_timer("dec.pull+verify"):
-        checks = checks.cpu().numpy()
-        out = None if return_device else out_dev.cpu().numpy()
-        parts = []
-        for i, (hdr, _p, cpos) in enumerate(plans):
-            tot, bad_i, conv_i = (int(v) for v in checks[i])
-            if bad_i:
-                raise corruption_detected("match offset beyond window or literal overrun")
-            if not conv_i:
-                # A frame that passed the offset check resolves within
-                # these passes unless a match with a non-positive offset
-                # starts at its first byte.
-                raise corruption_detected("copy chain does not end at a literal")
-            if hdr.content_size is not None and tot - plens[i] != hdr.content_size:
-                raise corruption_detected("frame content size mismatch")
-            if out is not None:
-                result = out[i, plens[i] : tot].tobytes()
-                if verify_checksum:
-                    plan_mod.check_checksum(blob, hdr, cpos, result)
-                parts.append(result)
+        with phase_timer("dec.exec_dispatch") as pt3:
+            lits = _gather_lits(lit_dest, lit_base, nlit_f[lo:hi], L, lit_flat, dev)
+            out_g, conv = seq_exec.execute_sequences_batch(
+                lits, lls, mls, offs, out_bound,
+                n_doublings=max(1, (out_bound - 1).bit_length()))
+            del lits
+            # Corruption: a match reaching before the frame start, or a
+            # literal run over the block's budget (a negative trailing run).
+            pos_end = torch.cumsum(lls + mls, dim=1)
+            bad = (((mls > 0) & (offs > pos_end - mls)) | (lls < 0)).any(dim=1)
+            checks = torch.stack([pos_end[:, -1], bad.long(), conv.long()], dim=1)
+            del lls, mls, offs, pos_end, bad, conv
+            pt3.fence(out_g)
+
+        with phase_timer("dec.pull+verify"):
+            checks = checks.cpu().numpy()
+            out = None if return_device else out_g.cpu().numpy()
+            for i, (hdr, _p, cpos) in enumerate(plans[lo:hi]):
+                tot, bad_i, conv_i = (int(v) for v in checks[i])
+                plen = plens[lo + i]
+                if bad_i:
+                    raise corruption_detected("match offset beyond window or literal overrun")
+                if not conv_i:
+                    # A frame that passed the offset check resolves within
+                    # these passes unless a match with a non-positive offset
+                    # starts at its first byte.
+                    raise corruption_detected("copy chain does not end at a literal")
+                if hdr.content_size is not None and tot - plen != hdr.content_size:
+                    raise corruption_detected("frame content size mismatch")
+                if out is not None:
+                    result = out[i, plen:tot].tobytes()
+                    if verify_checksum:
+                        plan_mod.check_checksum(blob, hdr, cpos, result)
+                    parts.append(result)
+            sizes += [int(t) for t in checks[:, 0]]
+        if return_device:
+            out_dev = place_group(out_dev, out_g, lo, hi, (F, _pow2(max(bounds), 7)))
+        # The next group allocates only after this one's buffers are freed.
+        del out_g, out
     if return_device:
-        return out_dev, [int(t) for t in checks[:, 0]]
+        return out_dev, sizes
     return parts

@@ -17,8 +17,9 @@ also holds the kernel's plain PyTorch version:
   on the ring contract's instances of those stages;
 - ``entropy.fse_decode_sequences`` - FSE sequence decode, one thread per
   block (the serial and pointer-doubling decode routes);
-- ``exec_kernel.serial_exec`` - execution of pre-decoded sequences, one
-  warp per frame (the serial decode route);
+- ``exec_kernel.serial_exec`` - execution of pre-decoded sequences (the
+  serial decode route), on the exec contract's instances of the wide
+  decoder's scan and pointer jumping;
 - ``byte_kernels.byte_histogram`` and ``byte_kernels.table_lookup`` -
   tile-local byte passes, on no archive path (as in the reference).
 

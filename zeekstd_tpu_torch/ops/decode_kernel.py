@@ -26,7 +26,8 @@ holding the record's first literal). On the card it runs in three stages
 writes one descriptor per output byte, and pointer jumping over the
 descriptors. ``staged_decode`` allocates their scratch and launches them
 for either contract; the ring contract's wrapper (``ring_kernel``) uses it
-too.
+too, and the serial executor (``exec_kernel``) the scratch and the
+resolve.
 """
 
 from __future__ import annotations
@@ -332,6 +333,31 @@ def launch_bytes(F: int, OUTB: int, LROWS: int, n_rec: int, n_seq: int) -> int:
     return F * (LROWS * 128 * 5 + OUTB) + stage_bytes(F, OUTB, n_rec, n_seq)
 
 
+def descriptor_scratch(F: int, OUTB: int, dev):
+    """The scan's and the resolve's buffers: two of F x OUTB int32
+    descriptors, the first with every byte the terminal 0 (-1), the second
+    written whole by the first jump round; and meta_out (F, 128)."""
+    desc_a = torch.full((F * OUTB,), -1, dtype=torch.int32, device=dev)
+    desc_b = torch.empty(F * OUTB, dtype=torch.int32, device=dev)
+    return desc_a, desc_b, torch.zeros((F, 128), dtype=torch.int32, device=dev)
+
+
+def resolve_stage(label: str, contract: str, desc_a, desc_b, pool, pool_width: int,
+                  OUTB: int, out):
+    """The resolve launch of ``contract``'s instance ("wide" or "ring"):
+    pointer jumping from ``desc_a`` and the gather from the pools ``pool``
+    (F rows of ``pool_width`` elements) into ``out``; raises if the
+    launcher reports an error."""
+
+    def resolve():
+        fn = kernel_fn(f"zk_{contract}_resolve_launch", [P, P, P, I, I, I, P, P])
+        check_rc(f"{label} (resolve)", fn(
+            ptr(desc_a), ptr(desc_b), ptr(pool), pool.shape[0], pool_width, OUTB, ptr(out),
+            stream()))
+
+    return resolve
+
+
 def staged_decode(contract, consts, meta, words, tables, pool, out, *, OUTB: int,
                   scan_ints, pool_width: int, min_wb: int):
     """Scratch and launches of the three stages of ``csrc/wide_decode.cu``
@@ -361,11 +387,7 @@ def staged_decode(contract, consts, meta, words, tables, pool, out, *, OUTB: int
     lls, mls, ofvs = (torch.empty(max(total, 1), dtype=torch.int32, device=dev)
                       for _ in range(3))
     rems = torch.empty(nrecp, dtype=torch.int32, device=dev)
-    # Descriptors: every byte starts as the terminal 0 (-1); the second
-    # buffer is written whole by the first jump round.
-    desc_a = torch.full((F * OUTB,), -1, dtype=torch.int32, device=dev)
-    desc_b = torch.empty(F * OUTB, dtype=torch.int32, device=dev)
-    meta_out = torch.zeros((F, 128), dtype=torch.int32, device=dev)
+    desc_a, desc_b, meta_out = descriptor_scratch(F, OUTB, dev)
     label = f"{contract}_decode"
 
     def fse():
@@ -382,11 +404,7 @@ def staged_decode(contract, consts, meta, words, tables, pool, out, *, OUTB: int
             ptr(meta), nrecp, ptr(seq_off), ptr(rems), ptr(lls), ptr(mls), ptr(ofvs),
             F, OUTB, *scan_ints, ptr(desc_a), ptr(meta_out), stream()))
 
-    def resolve():
-        fn = kernel_fn(f"zk_{contract}_resolve_launch", [P, P, P, I, I, I, P, P])
-        check_rc(f"{label} (resolve)", fn(
-            ptr(desc_a), ptr(desc_b), ptr(pool), F, pool_width, OUTB, ptr(out), stream()))
-
+    resolve = resolve_stage(label, contract, desc_a, desc_b, pool, pool_width, OUTB, out)
     return meta_out, (("fse", fse), ("scan", scan), ("resolve", resolve))
 
 

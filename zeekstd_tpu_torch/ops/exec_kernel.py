@@ -20,8 +20,13 @@ clamped to LROWS - LITB/128 - 1). A literal run past it, a write past
 OUTB, a match offset outside (0, position] or a negative trailing run
 marks the frame bad; per frame, meta_out holds (total, bad flag, literals
 consumed) in lanes 0-2. Output bytes past a frame's total are not defined
-(the reference never clears its scratch between frames), so comparisons
-cover [0, total).
+(the reference never clears its scratch between frames; the CUDA kernel
+writes 0 there), so comparisons cover [0, total).
+
+On the card the executor runs two of the wide decoder's stages
+(``csrc/wide_decode.cu``) in their exec instance: a scan per frame that
+writes one descriptor per output byte, and the wide instance's pointer
+jumping over the descriptors (``exec_stages``).
 """
 
 from __future__ import annotations
@@ -29,9 +34,11 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..errors import corruption_detected
 from . import launches
 from ._launch import (ALLOC_SLACK, I, P, check_cuda, check_rc, kernel_fn, padded_records,
                       ptr, stream)
+from .decode_kernel import descriptor_scratch, resolve_stage
 
 # Record kinds
 KIND_SEQ = 0  # sequences slice of a compressed block (+ trail at block end)
@@ -212,31 +219,56 @@ def exec_plain(meta, lls, mls, ofvs, lits, OUTB: int, LITB: int, SBd: int):
 
 def launch_bytes(F: int, OUTB: int, LROWS: int, n_rec: int) -> int:
     """Device bytes of a ``serial_exec`` launch: the literal pools, 4 B per
-    slot of F x LROWS x 128; the meta rows of n_rec records, padded; the
-    output, 1 B per byte of F x OUTB; meta_out; ``ALLOC_SLACK``."""
-    return (F * (LROWS * 128 * 4 + OUTB + 512) + padded_records(n_rec) * META_COLS * 4
+    slot of F x LROWS x 128; the meta rows of n_rec records, padded; per
+    byte of F x OUTB the output (1 B) and two int32 descriptor buffers
+    (8 B); meta_out; ``ALLOC_SLACK``."""
+    return (F * (LROWS * 128 * 4 + OUTB * 9 + 512) + padded_records(n_rec) * META_COLS * 4
             + ALLOC_SLACK)
+
+
+def exec_stages(meta, lls, mls, ofvs, lits, *, OUTB: int, LITB: int, SBd: int):
+    """Allocate the output and scratch of the CUDA executor for these CUDA
+    inputs (see ``serial_exec``). Returns (out, meta_out, stages):
+    ``stages`` are the ("scan", "resolve") launch functions, to run in that
+    order on the current stream; each raises if its launcher reports an
+    error."""
+    _check_shapes(lls, lits, OUTB, LITB, SBd)
+    for name, t in (("meta", meta), ("lls", lls), ("mls", mls), ("ofvs", ofvs),
+                    ("lits", lits)):
+        check_cuda(name, t)
+    if OUTB >= (1 << 31) - 256:
+        # A descriptor is a position below OUTB or -257 - i for a literal
+        # index i below OUTB, in int32.
+        raise corruption_detected("frame output too large for int32 descriptors")
+    F, LROWS = lits.shape[0], lits.shape[1]
+    nrecp, nrows = meta.numel() // META_COLS, lls.shape[0]
+    dev = lits.device
+    out = torch.empty((F, OUTB // 128, 128), dtype=torch.uint8, device=dev)
+    desc_a, desc_b, meta_out = descriptor_scratch(F, OUTB, dev)
+
+    def scan():
+        fn = kernel_fn("zk_exec_scan_launch", [P, I, P, P, P, I, I, I, I, I, I, P, P, P])
+        check_rc("exec (scan)", fn(
+            ptr(meta), nrecp, ptr(lls), ptr(mls), ptr(ofvs), nrows, SBd, F, OUTB, LITB, LROWS,
+            ptr(desc_a), ptr(meta_out), stream()))
+
+    resolve = resolve_stage("exec", "wide", desc_a, desc_b, lits, LROWS, OUTB, out)
+    return out, meta_out, (("scan", scan), ("resolve", resolve))
 
 
 def serial_exec(meta, lls, mls, ofvs, lits, *, OUTB: int, LITB: int, SBd: int):
     """Execute every frame's records. meta int32[NRECP, META_COLS];
     lls/mls/ofvs int32[NROWS, SBd]; lits int32[F, LROWS, 128] (one literal
     byte per int). Returns (out uint8[F, OUTB/128, 128], meta_out
-    int32[F, 128] = total, bad flag, literals consumed)."""
-    _check_shapes(lls, lits, OUTB, LITB, SBd)
+    int32[F, 128] = total, bad flag, literals consumed). Records are
+    frame-major with a frame's F_FRAME_START on its first record
+    (``build_records``)."""
     if lits.device.type == "cpu":
+        _check_shapes(lls, lits, OUTB, LITB, SBd)
         return exec_plain(meta, lls, mls, ofvs, lits, OUTB, LITB, SBd)
-    for name, t in (("meta", meta), ("lls", lls), ("mls", mls), ("ofvs", ofvs),
-                    ("lits", lits)):
-        check_cuda(name, t)
-    F, LROWS = lits.shape[0], lits.shape[1]
-    dev = lits.device
-    out = torch.zeros((F, OUTB // 128, 128), dtype=torch.uint8, device=dev)
-    meta_out = torch.zeros((F, 128), dtype=torch.int32, device=dev)
-    fn = kernel_fn("zk_exec_launch", [P, I, P, P, P, I, I, P, I, I, I, I, P, P, P])
-    rc = fn(ptr(meta), meta.numel() // META_COLS, ptr(lls), ptr(mls), ptr(ofvs),
-            lls.shape[0], SBd, ptr(lits), F, LROWS, LITB, OUTB, ptr(out),
-            ptr(meta_out), stream())
+    out, meta_out, stages = exec_stages(meta, lls, mls, ofvs, lits, OUTB=OUTB, LITB=LITB,
+                                        SBd=SBd)
+    for _name, launch in stages:
+        launch()
     launches["exec"] += 1
-    check_rc("exec", rc)
     return out, meta_out

@@ -197,8 +197,8 @@ def frame_bounds(plans, seek_table):
 
 
 # Device bytes one decode launch may allocate for its outputs and scratch:
-# every decode route but doubling splits an archive's frames into launch
-# groups under it.
+# every decode route splits an archive's frames into launch groups under
+# it.
 LAUNCH_BYTES = 4 << 30
 
 
