@@ -74,7 +74,9 @@ Phases (any failure raises; nothing is caught):
                on the card): median and spread in MiB/s, the fenced phase
                split, and the four new kernels' rows; the exec kernel's two
                stages (scan, pointer jumping) timed apart on the serial
-               route's inputs.
+               route's inputs; the FSE-decode kernel's sequences, ms,
+               ns and cycles per step of its longest row, and its rows
+               staged whole or windowed ([timing] fse_decode).
 
 Prints the card's name and power limit, one JSON line with the kernel
 table, and as its last line {"ok": true, "device": {...}}. With --out
@@ -372,18 +374,27 @@ def check_match_edge(mods, dev):
     return compare("match", a, dict(BLK=BLK, SBd=SBd, n_frames=rows.shape[0]), mods)[0]
 
 
-def match_timing(mk, a, k, ms):
-    """The [timing] match line: sequences per launch (from the stat rows),
-    ms per launch, and ns and cycles per sequence of one frame's chain
-    (frames parse in parallel) at the SM clock nvidia-smi reads while five
-    more launches run."""
-    for _ in range(5):
-        stat = mk.match(*a, **k)[3]
+def sm_clock(fn, ms):
+    """(SM clock, max SM clock) in MHz as nvidia-smi reads them while about
+    0.4 s of launches of ``fn`` (``ms`` each, at least five) run; returns
+    them with the last launch's result."""
+    for _ in range(max(5, int(400 / max(ms, 1e-3)))):
+        result = fn()
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm", "--format=csv,noheader,nounits"],
         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
     torch.cuda.synchronize()
     mhz, max_mhz = (float(x) for x in smi.split(","))
+    return mhz, max_mhz, result
+
+
+def match_timing(mk, a, k, ms):
+    """The [timing] match line: sequences per launch (from the stat rows),
+    ms per launch, and ns and cycles per sequence of one frame's chain
+    (frames parse in parallel) at the SM clock nvidia-smi reads while more
+    launches run."""
+    mhz, max_mhz, out = sm_clock(lambda: mk.match(*a, **k), ms)
+    stat = out[3]
     nseq = int(stat[:, mk.ST_NSEQ].sum())
     per_frame = nseq / k["n_frames"]
     ns = ms * 1e6 / per_frame
@@ -393,6 +404,29 @@ def match_timing(mk, a, k, ms):
         f"max {max_mhz:.0f} MHz)")
     return dict(sequences=nseq, per_frame=per_frame, ms=ms, ns_per_seq=ns,
                 cycles_per_seq=ns * mhz / 1e3, sm_mhz=mhz, max_sm_mhz=max_mhz)
+
+
+def fse_decode_timing(ent, a, k, ms):
+    """The [timing] fse_decode line: sequences per launch and the longest
+    row's, ms per launch, ns and cycles per step of the longest chain (rows
+    decode in parallel) at the SM clock under load, and how many rows with
+    sequences had their stream staged whole or slid a window over it."""
+    words, starts, nseqs = a[0], a[1], a[2]
+    mhz, max_mhz, _ = sm_clock(lambda: ent.fse_decode_sequences(*a, **k), ms)
+    nn = nseqs.to(torch.int64).clamp(0, k["seq_bound"]).cpu()
+    live = nn > 0
+    total, longest = int(nn.sum()), int(nn.max())
+    whole = ent.staged_whole(starts.cpu(), words.shape[1])
+    n_whole, n_window = int((whole & live).sum()), int((~whole & live).sum())
+    ns = ms * 1e6 / max(longest, 1)
+    log(f"[timing] fse_decode: {total} sequences per launch in {int(live.sum())} rows of "
+        f"{words.shape[0]}, longest row {longest}, {ms:.4f} ms per launch, {ns:.2f} ns and "
+        f"{ns * mhz / 1e3:.1f} cycles per step of the longest chain at {mhz:.0f} MHz (SM clock "
+        f"under load; max {max_mhz:.0f} MHz); rows staged whole {n_whole}, window slid "
+        f"{n_window} (stage_words {ent.stage_words(words.shape[1])} of WB {words.shape[1]})")
+    return dict(sequences=total, longest=longest, ms=ms, ns_per_step=ns,
+                cycles_per_step=ns * mhz / 1e3, sm_mhz=mhz, max_sm_mhz=max_mhz,
+                rows_whole=n_whole, rows_window=n_window)
 
 
 def cuda_ms(fn, reps):
@@ -975,6 +1009,8 @@ def main():
             table.append(row)
         if name == "match":
             extra["match_timing"] = match_timing(mods.mk, a, k, ms)
+        if name == "fse_decode":
+            extra["fse_decode_timing"] = fse_decode_timing(mods.ent, a, k, ms)
         stages_fn = {"wide_decode": mods.dk.wide_stages, "ring_decode": mods.rk.ring_stages,
                      "exec": mods.ek.exec_stages}.get(name)
         if stages_fn is not None:

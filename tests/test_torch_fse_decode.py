@@ -6,7 +6,11 @@ routes against the JAX package.
   (``tpu_codec._get_fse_decode_packed_fn``) in all five outputs and
   ``hasrep``: on blocks planned from the port's own level-1 and level-3
   archives, from a libzstd level-6 frame (cross-block repeat offsets),
-  from bit-flipped payloads, and on random (hostile) tables and streams.
+  from bit-flipped payloads, on random (hostile) tables and streams, and
+  on the cases of ``tests/fse_cases.py`` (mutated start bits, sequence
+  counts and table indices, rows past the kernel's staging budget, a
+  chain of 12,000 sequences). The kernel's staging helpers
+  (``stage_words``, ``staged_whole``) are held to what the walk reads.
 - ``huffman_spec.decode_stream_bitreach`` (device Huffman decode: torch
   glue and the reachability kernels' plain versions) equals the
   reference's device Huffman batch on the CPU (``decode_stream_spec``),
@@ -27,6 +31,7 @@ from zeekstd_tpu_torch import archive, decode_routes, device, plan
 from zeekstd_tpu_torch.ops import decode_kernel as dk
 from zeekstd_tpu_torch.ops import entropy, huffman_spec
 
+from . import fse_cases
 from .oracle import zstd_compress
 
 
@@ -115,6 +120,53 @@ def test_fse_decode_equals_reference_on_hostile_tables():
     packed = (sym | (nb << 8) | (base << 16)).astype(np.int32)
     logs_t = rng.integers(0, 12, T).astype(np.int32)
     _compare(words, starts, nseqs, tidx, packed, logs_t, 32)
+
+
+@pytest.mark.parametrize("name", fse_cases.CASES)
+def test_fse_decode_cases_equal_reference(name):
+    words, starts, nseqs, tidx, tables, logs_t, consts, seq_bound = fse_cases.case(name)
+    assert seq_bound % 8 == 0 and np.array_equal(consts, dk.make_consts())
+    _compare(words, starts, nseqs, tidx, tables, logs_t, seq_bound)
+
+
+def test_stage_words(monkeypatch):
+    assert entropy.stage_words(4096) == 4096 and entropy.stage_words(3) == 3
+    assert entropy.stage_words(1 << 16) == entropy.STAGE_WORDS == 8192
+    monkeypatch.setattr(entropy, "STAGE_WORDS", 66)
+    assert entropy.stage_words(1 << 16) == 64
+    monkeypatch.setattr(entropy, "STAGE_WORDS", 1)
+    assert entropy.stage_words(1 << 16) == 4 and entropy.stage_words(2) == 2
+
+
+@pytest.mark.parametrize("name", ["planned", "start_minus", "bit_flips", "wide_rows"])
+def test_walk_reads_no_word_above_its_start(name):
+    """On valid tables a row's walk reads no word above ``(start_bits >> 5)
+    + 1`` (what ``staged_whole`` and the kernel's window rely on): noise
+    there leaves every output unchanged. ``staged_whole`` holds the rows
+    whose top fits the staging budget."""
+    words, starts, nseqs, tidx, tables, logs_t, consts, seq_bound = fse_cases.case(name)
+    B, WB = words.shape
+    noisy = words.copy()
+    rng = np.random.default_rng(5)
+    tops = np.clip((starts.astype(np.int64) >> 5) + 2, 1, WB)
+    for i, top in enumerate(tops):
+        noisy[i, top:] = rng.integers(0, 1 << 32, WB - top, dtype=np.uint64).astype(np.uint32)
+    assert not np.array_equal(noisy, words)
+    outs = []
+    for w in (words, noisy):
+        st = device.from_reference_arrays("cpu", words=w, starts=starts, nseqs=nseqs, tidx=tidx,
+                                          tables=tables, logs=logs_t, consts=consts)
+        outs.append(entropy.fse_decode_sequences(
+            st["words"], st["starts"], st["nseqs"], st["tidx"], st["tables"], st["logs"],
+            st["consts"], seq_bound=seq_bound))
+    for a, b in zip(*outs):
+        assert torch.equal(a, b)
+    whole = entropy.staged_whole(torch.from_numpy(starts), WB)
+    assert whole.tolist() == (tops <= entropy.stage_words(WB)).tolist()
+    if name == "wide_rows":
+        assert whole.tolist() == [True, False, False, False]
+    else:
+        assert bool(whole.all())
 
 
 def test_huffman_batch_equals_reference(blobs):

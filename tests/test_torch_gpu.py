@@ -22,7 +22,7 @@ from zeekstd_tpu_torch.ops import match_kernel as mk
 from zeekstd_tpu_torch.ops import reach_kernel as rch
 from zeekstd_tpu_torch.ops import ring_kernel as rk
 
-from . import launch_cases, match_edges, ring_cases
+from . import fse_cases, launch_cases, match_edges, ring_cases
 from . import test_torch_exec as exec_cases
 
 pytestmark = pytest.mark.gpu
@@ -620,6 +620,31 @@ def test_fse_decode_kernel_equals_plain_on_hostile_tables(card):
     args = [st[n] for n in ("words", "starts", "nseqs", "tidx", "tables", "logs", "consts")]
     got = entropy.fse_decode_sequences(*args, seq_bound=32)
     want = entropy.fse_decode_plain(*(t.cpu() for t in args), 32)
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w)
+
+
+@pytest.mark.parametrize("stage", ["budget", "window64", "odd_bound"])
+@pytest.mark.parametrize("name", fse_cases.CASES)
+def test_fse_decode_kernel_equals_plain_on_cases(card, name, stage, monkeypatch):
+    """Each case of ``tests/fse_cases.py`` (a planned level-3 call, its
+    mutations, rows past the staging budget, a chain of 12,000 sequences)
+    through one kernel launch: at the staging budget, with a 64-word
+    window (every row slides it and reads past it from global memory), and
+    with an odd ``seq_bound`` (rows not 8-byte aligned: no paired stores).
+    Equal to fse_decode_plain in all six outputs."""
+    if stage == "window64":
+        monkeypatch.setattr(entropy, "STAGE_WORDS", 64)
+    *arrays, seq_bound = fse_cases.case(name)
+    if stage == "odd_bound":
+        seq_bound += 1
+    st = zt.from_reference_arrays(card, **dict(zip(
+        ("words", "starts", "nseqs", "tidx", "tables", "logs", "consts"), arrays)))
+    args = [st[n] for n in ("words", "starts", "nseqs", "tidx", "tables", "logs", "consts")]
+    before = ops.launches["fse_decode"]
+    got = entropy.fse_decode_sequences(*args, seq_bound=seq_bound)
+    assert ops.launches["fse_decode"] == before + 1
+    want = entropy.fse_decode_plain(*(t.cpu() for t in args), seq_bound)
     for g, w in zip(got, want):
         assert torch.equal(g.cpu(), w)
 

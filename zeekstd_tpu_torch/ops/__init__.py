@@ -15,8 +15,11 @@ also holds the kernel's plain PyTorch version:
   descriptors;
 - ``ring_kernel.ring_decode`` - the same for windows of at most 512 KiB,
   on the ring contract's instances of those stages;
-- ``entropy.fse_decode_sequences`` - FSE sequence decode, one thread per
-  block (the serial and pointer-doubling decode routes);
+- ``entropy.fse_decode_sequences`` - FSE sequence decode, one warp per
+  block over its tables and bitstream staged in shared memory, the
+  states walked 64 sequences at a time and those sequences decoded
+  across the lanes, two per lane (the serial and pointer-doubling decode
+  routes);
 - ``exec_kernel.serial_exec`` - execution of pre-decoded sequences (the
   serial decode route), on the exec contract's instances of the wide
   decoder's scan and pointer jumping;

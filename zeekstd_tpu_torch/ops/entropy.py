@@ -11,8 +11,12 @@ as the reference's device FSE dispatch calls it
 deduped tables, the ``hasrep`` flag). The reference runs it as an XLA
 scan; here it is a CUDA kernel (``csrc/fse_decode.cu``), because a
 plain-torch loop over the sequence index would be one small launch per
-sequence step. Its plain version (``fse_decode_plain``) decodes one
-block at a time over Python ints, as the kernel's threads do.
+sequence step. The kernel runs one warp per block: it stages the block's
+three table rows and a window of its bitstream (``stage_words`` words,
+``STAGE_WORDS`` at most) in shared memory, walks the FSE states 64
+sequences at a time, and decodes those sequences' values, repeat offsets
+and stores across the lanes, two per lane. Its plain version
+(``fse_decode_plain``) decodes one block at a time over Python ints.
 """
 
 from __future__ import annotations
@@ -27,6 +31,9 @@ from .bitpack import pack_bits
 _M32 = 0xFFFFFFFF
 LL_CODES = 36  # len(LL_BASE): ll code lookups clamp to it, as JAX's gather
 ML_CODES = 53  # len(ML_BASE)
+# Bitstream words the FSE-decode kernel stages per block in shared memory:
+# 32 KiB, a whole 32 KiB block's stream (the tables take 21 KiB more).
+STAGE_WORDS = 8192
 
 
 def huffman_encode_streams(segs, n_valid, codes, nbits, word_bound: int):
@@ -61,7 +68,8 @@ def _take(tab, i: int) -> int:
 
 
 def _decode_block(w, start: int, n: int, tll, tof, tml, logs, c, seq_bound: int):
-    """One block's sequences over Python ints (the kernel's thread)."""
+    """One block's sequences over Python ints (one thread block of the
+    kernel)."""
     W = len(w)
 
     def read_at(rem, nb):
@@ -153,6 +161,21 @@ def fse_decode_plain(words, start_bits, n_seq, tidx, tables, logs, consts, seq_b
     return (*out, reps, hasrep)
 
 
+def stage_words(WB: int) -> int:
+    """Bitstream words the kernel stages per block for rows of ``WB``
+    words: the whole row, up to ``STAGE_WORDS`` rounded down to a multiple
+    of 4 (at least 4)."""
+    return min(WB, max(4, STAGE_WORDS // 4 * 4))
+
+
+def staged_whole(start_bits, WB: int):
+    """bool[B]: rows whose valid walk reads only the words staged at the
+    start. A walk reads no word above ``(start_bits >> 5) + 1`` (its
+    position never rises); other rows slide the window down as they go."""
+    top = ((start_bits.to(torch.int64) >> 5) + 2).clamp(1, WB)
+    return top <= stage_words(WB)
+
+
 def fse_decode_sequences(words, start_bits, n_seq, tidx, tables, logs, consts, *,
                          seq_bound: int):
     """Decode every block's FSE sequence stream.
@@ -174,16 +197,18 @@ def fse_decode_sequences(words, start_bits, n_seq, tidx, tables, logs, consts, *
     if tables.shape[-1] != 512 or consts.numel() != 256:
         raise ValueError("tables must be (T, 512) and consts (4, 64)")
     B, WB = words.shape
+    if WB < 1 or tables.shape[0] < 1:
+        raise ValueError("words and tables must have at least one row entry")
     dev = words.device
     lls, mls, offs, ofvs = (torch.empty((B, seq_bound), dtype=torch.int32, device=dev)
                             for _ in range(4))
     reps = torch.empty((B, 3), dtype=torch.int32, device=dev)
     hasrep = torch.empty(B, dtype=torch.int32, device=dev)
     fn = kernel_fn("zk_fse_seq_decode_launch",
-                   [P, I, P, P, P, P, I, P, P, I, I, P, P, P, P, P, P, P])
+                   [P, I, P, P, P, P, I, P, P, I, I, I, P, P, P, P, P, P, P])
     rc = fn(ptr(words), WB, ptr(start_bits), ptr(n_seq), ptr(tidx), ptr(tables),
-            tables.shape[0], ptr(logs), ptr(consts), B, seq_bound, ptr(lls), ptr(mls),
-            ptr(offs), ptr(ofvs), ptr(reps), ptr(hasrep), stream())
+            tables.shape[0], ptr(logs), ptr(consts), B, seq_bound, stage_words(WB), ptr(lls),
+            ptr(mls), ptr(offs), ptr(ofvs), ptr(reps), ptr(hasrep), stream())
     launches["fse_decode"] += 1
     check_rc("fse_decode", rc)
     return lls, mls, offs, ofvs, reps, hasrep.bool()
