@@ -35,7 +35,11 @@ Phases (any failure raises; nothing is caught):
                version's time on the same inputs; for the match kernel
                the sequences per launch and the ns and cycles per
                sequence of one frame's chain at the SM clock nvidia-smi
-               reads while the kernel runs ([timing] match); the ring
+               reads while the kernel runs ([timing] match); for the FSE
+               kernel, at levels 1 and 3, its jobs, sequences per launch,
+               longest job, ns and cycles per step of that job, and the
+               time of the zero fill its wrapper does not do ([timing]
+               fse_encode); the ring
                decoder's three stages (FSE pass, scan, pointer jumping)
                timed apart on the level-1 decode's inputs.
   3b. level 3 - the same 10 MiB text, 1 MiB frames, level 3 (the CLI's
@@ -45,7 +49,8 @@ Phases (any failure raises; nothing is caught):
                new = old with 256 seeded 16-byte overwrites and a 4 KiB
                insertion, encoded with old as prefix, every frame back
                through decompress_frame). The reachability kernels, the
-               FSE kernel and the wide decoder must have launched.
+               FSE kernel and the wide decoder must have launched; the
+               patch encode's FSE launch must equal its plain version.
   4b. timing - as phase 4 for the level-3 configuration (decode on the
                wide route), and the kernels of the level-3 path; the wide
                decoder's three stages (FSE pass, scan, pointer jumping)
@@ -427,6 +432,28 @@ def fse_decode_timing(ent, a, k, ms):
     return dict(sequences=total, longest=longest, ms=ms, ns_per_step=ns,
                 cycles_per_step=ns * mhz / 1e3, sm_mhz=mhz, max_sm_mhz=max_mhz,
                 rows_whole=n_whole, rows_window=n_window)
+
+
+def fse_encode_timing(fk, a, k, ms, level):
+    """The [timing] fse_encode line: jobs, sequences per launch and the
+    longest job's, ms per launch, ns and cycles per step of the longest
+    job (jobs encode in parallel) at the SM clock under load, and the time
+    of the zero fill of the words that the wrapper does not do."""
+    meta = a[1]
+    nseq = meta[:, fk.J_NSEQ].to(torch.int64).clamp(0, k["SBd"]).cpu()
+    mhz, max_mhz, _ = sm_clock(lambda: fk.fse_encode(*a, **k), ms)
+    fill_ms = cuda_ms(lambda: torch.zeros((meta.shape[0], k["WBo"]), dtype=torch.int32,
+                                          device=meta.device), 20)[0]
+    total, longest, jobs = int(nseq.sum()), int(nseq.max()), int((nseq > 0).sum())
+    ns = ms * 1e6 / max(longest, 1)
+    log(f"[timing] fse_encode (level {level}): {jobs} jobs of {meta.shape[0]}, {total} sequences "
+        f"per launch, longest job {longest}, {ms:.4f} ms per launch, {ns:.2f} ns and "
+        f"{ns * mhz / 1e3:.1f} cycles per step of the longest job at {mhz:.0f} MHz (SM clock "
+        f"under load; max {max_mhz:.0f} MHz), chunk {fk.CHUNK}; zero fill of the words (not "
+        f"done) {fill_ms:.4f} ms")
+    return dict(jobs=jobs, sequences=total, longest=longest, ms=ms, ns_per_step=ns,
+                cycles_per_step=ns * mhz / 1e3, sm_mhz=mhz, max_sm_mhz=max_mhz,
+                chunk=fk.CHUNK, zero_fill_ms=fill_ms)
 
 
 def cuda_ms(fn, reps):
@@ -889,6 +916,12 @@ def main():
         raise AssertionError("the level-3 path took the ring decoder or the match kernel")
     results.update(ratio3=len(blob3) / n, patch_bytes=len(blob_p), launches3=counts3,
                    corrupt3=corrupt3)
+    # The archive encode's FSE launch is compared in the kernel table below.
+    for a, k in main_rec3.calls["fse"][1:]:
+        err = compare("fse", a, k, mods)[0]
+        small_err["fse"] = max(small_err["fse"], err)
+        log(f"[level 3] fse: the patch encode's launch equals its plain version "
+            f"(max abs err {err})")
 
     # --- 4b. level-3 timing ------------------------------------------------
     results["level3"] = time_path(zt, data, 3, dev, smi)
@@ -1011,6 +1044,8 @@ def main():
             extra["match_timing"] = match_timing(mods.mk, a, k, ms)
         if name == "fse_decode":
             extra["fse_decode_timing"] = fse_decode_timing(mods.ent, a, k, ms)
+        if name == "fse":
+            extra[f"fse_encode_timing_level{path}"] = fse_encode_timing(mods.fk, a, k, ms, path)
         stages_fn = {"wide_decode": mods.dk.wide_stages, "ring_decode": mods.rk.ring_stages,
                      "exec": mods.ek.exec_stages}.get(name)
         if stages_fn is not None:

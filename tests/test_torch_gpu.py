@@ -22,7 +22,7 @@ from zeekstd_tpu_torch.ops import match_kernel as mk
 from zeekstd_tpu_torch.ops import reach_kernel as rch
 from zeekstd_tpu_torch.ops import ring_kernel as rk
 
-from . import fse_cases, launch_cases, match_edges, ring_cases
+from . import fse_cases, fse_enc_cases, launch_cases, match_edges, ring_cases
 from . import test_torch_exec as exec_cases
 
 pytestmark = pytest.mark.gpu
@@ -104,6 +104,41 @@ def test_fse_kernel_equals_plain(calls):
     for j, nb in enumerate(b0.tolist()):
         if nb:
             assert torch.equal(words[j, : nb // 32 + 1].cpu(), w0[j, : nb // 32 + 1].cpu())
+
+
+@pytest.mark.parametrize("chunk", fk.CHUNKS)
+@pytest.mark.parametrize("name", fse_enc_cases.CASES)
+def test_fse_kernel_equals_plain_on_cases(card, name, chunk, monkeypatch):
+    """Each case of ``tests/fse_enc_cases.py`` (archive jobs at levels 1 and
+    3, chunk-edge sequence counts, RLE and predefined tables, shared rows,
+    code edges, table indices past the pool, a WBo the streams overflow)
+    through one launch at each chunk size the kernel is built for (at 32
+    every job of more than 32 sequences crosses chunks), into memory the
+    allocator hands back filled with ones: bit counts equal fse_plain's,
+    and words up to and including word bits // 32 (below WBo)."""
+    monkeypatch.setattr(fk, "CHUNK", chunk)
+    consts, meta, lm, ofv, tables, SBd, WBo = fse_enc_cases.case(name)
+    host = [torch.from_numpy(x) for x in (consts, meta, lm, ofv, tables)]
+    args = [t.to(card) for t in host]
+    torch.full((meta.shape[0], WBo), -1, dtype=torch.int32, device=card)  # freed for the words
+    before = ops.launches["fse"]
+    words, bits = fk.fse_encode(*args, SBd=SBd, WBo=WBo)
+    assert ops.launches["fse"] == before + 1
+    w0, b0 = fk.fse_plain(*host, SBd, WBo)
+    assert torch.equal(bits.cpu(), b0)
+    for j, nb in enumerate(b0.tolist()):
+        n = min(nb // 32 + 1, WBo)
+        assert torch.equal(words[j, :n].cpu(), w0[j, :n]), j
+
+
+def test_fse_kernel_refuses_an_unbuilt_chunk(card, monkeypatch):
+    consts, meta, lm, ofv, tables, SBd, WBo = fse_enc_cases.case("rle")
+    args = [torch.from_numpy(x).to(card) for x in (consts, meta, lm, ofv, tables)]
+    monkeypatch.setattr(fk, "CHUNK", 100)
+    before = ops.launches["fse"]
+    with pytest.raises(ValueError):
+        fk.fse_encode(*args, SBd=SBd, WBo=WBo)
+    assert ops.launches["fse"] == before
 
 
 @pytest.mark.parametrize("route", ["ring", "wide"])

@@ -13,7 +13,12 @@ their accuracy logs. ``ops/assemble.finalize_streams`` adds the sentinel.
 
 Encode-table rows (one int32[1024] row per table, deduped across
 Repeat_Mode blocks): [0:64] delta_nb_bits, [64:128] delta_find_state,
-[128:640] state_table.
+[128:640] state_table. A row index outside the pool reads the nearest
+row; a state-table index is taken modulo 1024. Words at index >= WBo are
+never written, but the bit count still counts them.
+
+The CUDA kernel walks each job in chunks of ``CHUNK`` sequences (one of
+``CHUNKS``, the sizes the kernel is compiled for).
 """
 
 from __future__ import annotations
@@ -43,6 +48,9 @@ C_MLLUT = 320    # 128: (ml-3) -> code for ml-3 < 128
 CONSTS_LEN = 512
 
 _MASK32 = 0xFFFFFFFF
+
+CHUNKS = (512, 32)
+CHUNK = 512  # sequences per chunk of the kernel's walk
 
 
 def make_consts():
@@ -89,12 +97,13 @@ def _highbit(x: int) -> int:
 
 
 def _encode_job(c, lm, ofv, tll, tof, tml, logs, words):
-    """One job over Python ints; writes ``words`` (a list) and returns the
-    stream's bit count."""
+    """One job over Python ints; writes ``words`` (a list; words past its
+    length are dropped) and returns the stream's bit count."""
     nseq = len(lm)
+    cap = len(words)
 
     def seq_at(j):
-        ll, ml, ov = lm[j] >> 16, lm[j] & 0xFFFF, ofv[j]
+        ll, ml, ov = (lm[j] >> 16) & 0xFFFF, lm[j] & 0xFFFF, ofv[j]
         llc = c[C_LLLUT + ll] if ll < 64 else 19 + _highbit(ll)
         mlb = ml - 3
         mlc = c[C_MLLUT + mlb] if mlb < 128 else 36 + _highbit(mlb)
@@ -106,11 +115,12 @@ def _encode_job(c, lm, ofv, tll, tof, tml, logs, words):
         dnb = t[sym]
         nb = (dnb + (1 << 15)) >> 16
         value = (nb << 16) - dnb
-        return t[128 + (value >> nb) + t[64 + sym]]
+        return t[(128 + (value >> nb) + t[64 + sym]) & 1023]
 
     def enc(t, state, sym):
         nb = (state + t[sym]) >> 16
-        return t[128 + (state >> nb) + t[64 + sym]], state & ((1 << nb) - 1), nb
+        return (t[(128 + (state >> nb) + t[64 + sym]) & 1023], state & ((1 << nb) - 1),
+                nb)
 
     acc = n = w = 0
 
@@ -119,7 +129,8 @@ def _encode_job(c, lm, ofv, tll, tof, tml, logs, words):
         v = val & ((1 << nb) - 1)
         acc2 = (acc | (v << n)) & _MASK32
         if n + nb >= 32:
-            words[w] = acc2
+            if w < cap:
+                words[w] = acc2
             acc = v >> (32 - n)
             n = n + nb - 32
             w += 1
@@ -147,7 +158,8 @@ def _encode_job(c, lm, ofv, tll, tof, tml, logs, words):
     wadd(ml_s, (logs >> 10) & 31)
     wadd(of_s, (logs >> 5) & 31)
     wadd(ll_s, logs & 31)
-    words[w] = acc
+    if w < cap:
+        words[w] = acc
     return w * 32 + n
 
 
@@ -164,6 +176,7 @@ def fse_plain(consts, meta, lm, ofv, tables, SBd: int, WBo: int):
     rows = {}
 
     def row(k):
+        k = min(max(k, 0), tab.shape[0] - 1)
         if k not in rows:
             rows[k] = tab[k].tolist()
         return rows[k]
@@ -188,19 +201,28 @@ def fse_encode(consts, meta, lm, ofv, tables, *, SBd: int, WBo: int):
     """Encode every job. consts int32[512], meta int32[NRECJ, JMETA_COLS],
     lm/ofv int32[NRECP, SBd] (match-kernel rows), tables int32[Tp, 1024].
     Returns (words int32[NRECJ, WBo] - the uint32 stream words, exact up
-    to ``bits`` - and bits int32[NRECJ])."""
+    to and including word ``bits // 32`` - and bits int32[NRECJ]).
+
+    On the card ``words`` is not zero-filled: the kernel writes every
+    word up to ``bits // 32`` (word 0 of a job without sequences), and
+    ``assemble.finalize_streams`` zeroes each image past its sentinel
+    byte, so nothing reads the words beyond."""
     if lm.device.type == "cpu":
         return fse_plain(consts, meta, lm, ofv, tables, SBd, WBo)
     for name, t in (("consts", consts), ("meta", meta), ("lm", lm),
                     ("ofv", ofv), ("tables", tables)):
         check_cuda(name, t)
+    if CHUNK not in CHUNKS:
+        raise ValueError(f"CHUNK must be one of {CHUNKS}, got {CHUNK}")
+    if tables.numel() < 1024:
+        raise ValueError("tables must hold at least one 1024-entry row")
     njobs = meta.numel() // JMETA_COLS
     dev = lm.device
-    words = torch.zeros((njobs, WBo), dtype=torch.int32, device=dev)
-    bits = torch.zeros(njobs, dtype=torch.int32, device=dev)
-    fn = kernel_fn("zk_fse_launch", [P, P, P, P, P, I, I, I, I, P, P, P])
+    words = torch.empty((njobs, WBo), dtype=torch.int32, device=dev)
+    bits = torch.empty(njobs, dtype=torch.int32, device=dev)
+    fn = kernel_fn("zk_fse_launch", [P, P, P, P, P, I, I, I, I, I, P, P, P])
     rc = fn(ptr(consts), ptr(meta), ptr(lm), ptr(ofv), ptr(tables),
-            tables.numel() // 1024, njobs, SBd, WBo, ptr(words), ptr(bits),
+            tables.numel() // 1024, njobs, SBd, WBo, CHUNK, ptr(words), ptr(bits),
             stream())
     launches["fse"] += 1
     check_rc("fse", rc)
