@@ -82,6 +82,14 @@ Phases (any failure raises; nothing is caught):
                route's inputs; the FSE-decode kernel's sequences, ms,
                ns and cycles per step of its longest row, and its rows
                staged whole or windowed ([timing] fse_decode).
+  table      - each kernel's row: the wrapper's CUDA-event time at its
+               path's shapes; for the byte histogram, the table lookup and
+               the two reachability kernels the device time alone instead
+               (wrapper_ms beside it): wrapper calls captured into a CUDA
+               graph, cold (rotated over copies of the inputs and outputs
+               that exceed 2.4 times the L2) and warm ([timing] reach); the byte kernels also cold at 160 MiB (16 copies of
+               the text) and their library calls on rotated copies
+               ([timing] bytes).
 
 Prints the card's name and power limit, one JSON line with the kernel
 table, and as its last line {"ok": true, "device": {...}}. With --out
@@ -470,12 +478,132 @@ def cuda_ms(fn, reps):
     return ev0.elapsed_time(ev1) / reps, result
 
 
+L2_BYTES = 50 * 10**6  # H100 L2 cache
+
+# The kernels whose rows give the device time alone (rows 6-9).
+DEVICE_TIMED = ("byte_histogram", "table_lookup", "reach_tables", "reach_mark")
+
+
+def cold_copies(nbytes):
+    """Copies of a launch's inputs and outputs to rotate over so that their
+    total exceeds 2.4 times the L2 cache (at least 4): each launch then finds
+    its data cold (12 for the byte histogram at 10 MiB, 4 for the lookup)."""
+    return max(4, -(-int(2.4 * L2_BYTES) // nbytes))
+
+
+def graph_ms(calls, replays=5):
+    """Device ms per call of ``calls`` (callables, each launching one kernel
+    on the current stream and returning its output or None): at least 24
+    calls, taken in turn, captured into one CUDA graph; CUDA events around
+    each replay; the median of ``replays`` replays after a warm one. A
+    wrapper's checks, allocation and ctypes call run only while the graph is
+    captured, so a replay times the device alone. Each call's output is held
+    until the same callable's next call, so the outputs rotate over
+    ``len(calls) + 1`` allocations. Returns (ms, the last round's outputs as
+    the replays left them)."""
+    n = len(calls) * -(-24 // len(calls))
+    for fn in calls:
+        fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    held = [None] * len(calls)
+    with torch.cuda.graph(graph):
+        for i in range(n):
+            held[i % len(calls)] = calls[i % len(calls)]()
+    graph.replay()
+    torch.cuda.synchronize()
+    ev0, ev1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    times = []
+    for _ in range(replays):
+        ev0.record()
+        graph.replay()
+        ev1.record()
+        torch.cuda.synchronize()
+        times.append(ev0.elapsed_time(ev1) / n)
+    return sorted(times)[replays // 2], held
+
+
+def device_ms(name, a, k, want, m):
+    """``name``'s wrapper timed on the device alone (``graph_ms``): warm (on
+    ``a``, back to back) and cold (rotated over ``cold_copies`` copies of
+    ``a``). Every output must equal ``want``. Returns dict(cold_ms,
+    warm_ms, bytes, bound_ms, copies)."""
+    fn = wrapper(name, m)
+    nbytes = moved_bytes(name, a, want, m)
+    copies = cold_copies(nbytes)
+    sets = [a] + [[t.clone() for t in a] for _ in range(copies - 1)]
+    calls = [lambda s=s: fn(*s, **k) for s in sets]
+    cold, outs = graph_ms(calls)
+    warm, outs1 = graph_ms(calls[:1])
+    for out in outs + outs1:
+        if not torch.equal(out, want):
+            raise AssertionError(f"{name}: an output of the captured wrapper differs")
+    return dict(cold_ms=cold, warm_ms=warm, bytes=nbytes,
+                bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, copies=copies)
+
+
+def library_ms(name, a, k, copies):
+    """The one PyTorch call that computes the byte kernel ``name``'s function,
+    on ``copies`` rotated copies of its precomputed inputs: ``torch.take``
+    in a CUDA graph (``graph_ms``); ``torch.bincount``, which synchronises
+    to size its output and cannot be captured, back to back (events around
+    24 calls). Returns (ms per call, method)."""
+    d = a[0]
+    if name == "table_lookup":
+        idxs = [d.long() for _ in range(copies)]
+        return graph_ms([lambda i=i: torch.take(a[1], i) for i in idxs])[0], "CUDA graph"
+    block = k.get("block", 1 << 15)
+    nbins = d.numel() // block * 256
+    bins = [torch.arange(d.numel(), device=d.device) // block * 256 + d.long()
+            for _ in range(copies)]
+    for b in bins:
+        torch.bincount(b, minlength=nbins)
+    torch.cuda.synchronize()
+    ev0, ev1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    ev0.record()
+    for i in range(24):
+        torch.bincount(bins[i % copies], minlength=nbins)
+    ev1.record()
+    torch.cuda.synchronize()
+    return ev0.elapsed_time(ev1) / 24, "back to back (syncs inside)"
+
+
+def device_timing(name, a, k, result, m, smi):
+    """Rows 6-9 of the kernel table on the device alone (``device_ms``):
+    cold and warm, and the share of the bound cold ([timing] reach); for
+    the byte kernels also cold at 160 MiB (16 copies of the text) and the
+    library call on rotated copies ([timing] bytes)."""
+    t = device_ms(name, a, k, result, m)
+    desc = (f"device ms cold {t['cold_ms']:.6f} ({t['copies']} copies rotated), warm "
+            f"{t['warm_ms']:.6f}; bound {t['bound_ms']:.6f} ms ({t['bytes']} bytes), "
+            f"{100 * t['bound_ms'] / t['cold_ms']:.1f}% of it cold")
+    if name not in ("byte_histogram", "table_lookup"):
+        log(f"[timing] reach {name}: {desc}  ({smi})")
+        return t
+    big_a = [a[0].repeat(16)] + list(a[1:])
+    want = result.repeat(16, 1) if name == "byte_histogram" else result.repeat(16)
+    big = device_ms(name, big_a, k, want, m)
+    lib_ms, method = library_ms(name, a, k, cold_copies(a[0].numel() * 8))
+    t.update(big_cold_ms=big["cold_ms"], big_bytes=big["bytes"], big_bound_ms=big["bound_ms"],
+             library_ms=lib_ms, library_method=method)
+    call = "torch.take" if name == "table_lookup" else "torch.bincount"
+    log(f"[timing] bytes {name}: {desc}; at 160 MiB cold {big['cold_ms']:.6f} ms, bound "
+        f"{big['bound_ms']:.6f} ms ({100 * big['bound_ms'] / big['cold_ms']:.1f}%); {call} "
+        f"{lib_ms:.6f} ms ({method}, rotated)  ({smi})")
+    return t
+
+
+def wrapper(name, m):
+    """The wrapper (the entry point the path calls) of kernel ``name``."""
+    return {"match": m.mk.match, "reach_tables": m.rch.chunk_pointer_tables,
+            "reach_mark": m.rch.chunk_mark, "fse": m.fk.fse_encode,
+            "ring_decode": m.rk.ring_decode, "wide_decode": m.dk.wide_decode,
+            "exec": m.ek.serial_exec, "fse_decode": m.ent.fse_decode_sequences,
+            "byte_histogram": m.bk.byte_histogram, "table_lookup": m.bk.table_lookup}[name]
+
+
 def time_kernel(name, a, k, m, reps=5):
-    fn = {"match": m.mk.match, "reach_tables": m.rch.chunk_pointer_tables,
-          "reach_mark": m.rch.chunk_mark, "fse": m.fk.fse_encode,
-          "ring_decode": m.rk.ring_decode, "wide_decode": m.dk.wide_decode,
-          "exec": m.ek.serial_exec, "fse_decode": m.ent.fse_decode_sequences,
-          "byte_histogram": m.bk.byte_histogram, "table_lookup": m.bk.table_lookup}[name]
+    fn = wrapper(name, m)
     return cuda_ms(lambda: fn(*a, **k), reps)
 
 
@@ -663,7 +791,7 @@ def check_byte_kernels(ops, data, dev, m, small_err):
     """Phase 2c (bytes): the byte histogram (32 KiB blocks) and the table
     lookup (a Huffman bit-count table) over the 10 MiB text, against their
     plain versions and against one PyTorch call each. Returns the recorder
-    of the two launches, their launch counts and the library calls."""
+    of the two launches and their launch counts."""
     block = 1 << 15
     d = torch.from_numpy(np.frombuffer(data, np.uint8).copy()).to(dev)
     table = torch.from_numpy(
@@ -675,23 +803,18 @@ def check_byte_kernels(ops, data, dev, m, small_err):
     counts = dict(ops.launches)
     if counts["byte_histogram"] != 1 or counts["table_lookup"] != 1:
         raise AssertionError(f"the byte kernels did not launch once each: {counts}")
-    nblk = d.numel() // block
     bins = torch.arange(d.numel(), device=dev) // block * 256 + d.long()
-    idx = d.long()
-    lib_fns = {
-        "byte_histogram": lambda: torch.bincount(bins, minlength=nblk * 256),
-        "table_lookup": lambda: torch.take(table, idx),
-    }
-    if not torch.equal(hist.reshape(-1).long(), lib_fns["byte_histogram"]()):
+    if not torch.equal(hist.reshape(-1).long(),
+                       torch.bincount(bins, minlength=d.numel() // block * 256)):
         raise AssertionError("byte_histogram disagrees with torch.bincount")
-    if not torch.equal(look, lib_fns["table_lookup"]()):
+    if not torch.equal(look, torch.take(table, d.long())):
         raise AssertionError("table_lookup disagrees with torch.take")
     for name in ("byte_histogram", "table_lookup"):
         (a, k), = rec.calls[name]
         small_err[name] = compare(name, a, k, m)[0]
         log(f"[bytes] {name}: equal to its plain version and to the PyTorch call on "
             f"10 MiB")
-    return rec, counts, lib_fns
+    return rec, counts
 
 
 def time_routes(zt, data, dev, smi):
@@ -817,7 +940,7 @@ def main():
     data = build_corpus(10 << 20)
     n = len(data)
     results["routes_small"] = check_routes_small(zt, small, blob_s, st_s, dev, mods, small_err)
-    rec_bytes, counts_bytes, lib_fns = check_byte_kernels(ops, data, dev, mods, small_err)
+    rec_bytes, counts_bytes = check_byte_kernels(ops, data, dev, mods, small_err)
 
     # --- 3. main path, full size -----------------------------------------
     ops.reset_launches()
@@ -1027,7 +1150,14 @@ def main():
             err, t_plain = compare(name, a, k, mods)
         moved = moved_bytes(name, a, result, mods)
         bound_ms = moved / HBM_BYTES_PER_S * 1e3
-        lib_ms = cuda_ms(lib_fns[name], 20)[0] if name in lib_fns else None
+        lib_ms = None
+        wrapper_ms = None
+        if name in DEVICE_TIMED:
+            # Rows 6-9: the device time alone, cold, beside the wrapper's
+            # events (the checks, the allocation and the ctypes call too).
+            wrapper_ms, dev_t = ms, device_timing(name, a, k, result, mods, smi)
+            ms, lib_ms = dev_t["cold_ms"], dev_t.get("library_ms")
+            extra[f"{name}_device"] = dev_t
         launched = sum(run[name] for run in runs)
         row = {
             "name": name, "route": "cuda", "source": sources[name][0],
@@ -1036,6 +1166,8 @@ def main():
             "plain_ms": t_plain * 1e3, "bound_ms": bound_ms, "bound_by": "bytes",
             "library_ms": lib_ms,
         }
+        if wrapper_ms is not None:
+            row["wrapper_ms"] = wrapper_ms
         if name == "fse" and path == 3:
             extra["fse_level3"] = row
         else:
@@ -1054,6 +1186,8 @@ def main():
             log(f"[timing] {name} stages (phase {path} shapes, F={a[4].shape[0]}, "
                 f"OUTB={k['OUTB']}): " + ", ".join(f"{n} {t:.4f} ms" for n, t in stages.items()))
         lib = f", library {lib_ms:.4f} ms" if lib_ms is not None else ""
+        if wrapper_ms is not None:
+            lib += f", wrapper {wrapper_ms:.4f} ms"
         log(f"[timing] {name} (phase {path} shapes): {ms:.4f} ms/launch, bound "
             f"{bound_ms:.6f} ms ({moved} bytes), plain {t_plain * 1e3:.1f} ms{lib}, "
             f"launches {launched} ({' + '.join(str(run[name]) for run in runs)})")

@@ -1,6 +1,7 @@
 """PyTorch port: the byte histogram and table lookup against the JAX
 package's Pallas kernels in interpret mode (the cases of
-``tests/test_pallas_kernels.py``), plus the wrappers' shape checks."""
+``tests/test_pallas_kernels.py`` and of ``tests/byte_cases.py``), plus
+the wrappers' shape checks."""
 
 import numpy as np
 import pytest
@@ -11,6 +12,8 @@ jnp = jax.numpy
 
 from zeekstd_tpu.ops.pallas_kernels import byte_histogram_pallas, table_lookup_pallas
 from zeekstd_tpu_torch.ops import byte_kernels as bk
+
+from . import byte_cases
 
 
 @pytest.mark.parametrize("case", ["seed0-1block", "seed1-4blocks", "skewed"])
@@ -55,3 +58,24 @@ def test_wrappers_refuse_the_reference_kernels_shapes():
         bk.table_lookup(data, torch.zeros(256, dtype=torch.int32))  # n % 1024 != 0
     with pytest.raises(ValueError):
         bk.table_lookup(torch.zeros(1024, dtype=torch.uint8), torch.zeros(128, dtype=torch.int32))
+
+
+@pytest.mark.parametrize("name", list(byte_cases.HIST))
+def test_histogram_cases_equal_reference(name):
+    data, block = byte_cases.HIST[name]
+    got = bk.byte_histogram(torch.from_numpy(data), block=block)
+    ref = byte_histogram_pallas(jnp.asarray(data), block=block, interpret=True)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(ref))
+    assert got.dtype == torch.int32
+
+
+@pytest.mark.parametrize("name", list(byte_cases.LOOKUP))
+def test_lookup_cases_equal_reference(name):
+    """Tables of any integer dtype, and strided ones, give the reference's
+    int32 outputs (the reference casts the table with ``astype``)."""
+    data, tab = byte_cases.LOOKUP[name]
+    got = bk.table_lookup(torch.from_numpy(data), torch.from_numpy(tab))
+    ref = table_lookup_pallas(jnp.asarray(data), jnp.asarray(tab), interpret=True)
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), np.asarray(ref))
+    np.testing.assert_array_equal(got.numpy(), tab.astype(np.int32)[data])

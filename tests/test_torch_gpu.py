@@ -22,7 +22,7 @@ from zeekstd_tpu_torch.ops import match_kernel as mk
 from zeekstd_tpu_torch.ops import reach_kernel as rch
 from zeekstd_tpu_torch.ops import ring_kernel as rk
 
-from . import fse_cases, fse_enc_cases, launch_cases, match_edges, ring_cases
+from . import byte_cases, fse_cases, fse_enc_cases, launch_cases, match_edges, ring_cases
 from . import test_torch_exec as exec_cases
 
 pytestmark = pytest.mark.gpu
@@ -711,3 +711,88 @@ def test_byte_kernels_equal_plain(card, n, block):
                        bk.histogram_plain(d[1 : 1 + m], block))
     assert torch.equal(bk.table_lookup(off[: n - 1024], table.to(card)).cpu(),
                        bk.lookup_plain(d[1 : 1 + n - 1024], table))
+
+
+def _card_view(card, x, aligned):
+    """``x`` (a CPU tensor) on the card: at an allocation's start, or one
+    byte past it (not 4- or 16-byte aligned)."""
+    if aligned:
+        return x.to(card)
+    buf = torch.empty(x.numel() + 16, dtype=x.dtype, device=card)
+    view = buf[1 : 1 + x.numel()]
+    view.copy_(x.to(card))
+    assert view.data_ptr() % 4 != 0
+    return view
+
+
+def _card_table(card, table):
+    """A numpy table on the card, strided there too where it is strided."""
+    if table.flags.c_contiguous:
+        return torch.from_numpy(table).to(card)
+    tab = torch.from_numpy(np.repeat(table, 2)).to(card)[::2]
+    assert not tab.is_contiguous()
+    return tab
+
+
+@pytest.mark.parametrize("aligned", [True, False])
+@pytest.mark.parametrize("name", list(byte_cases.HIST))
+def test_byte_histogram_equals_plain_on_cases(card, name, aligned):
+    """Each case of ``tests/byte_cases.py`` through one launch, on an aligned
+    tensor and on an unaligned view, into memory the allocator hands back
+    filled with ones."""
+    data, block = byte_cases.HIST[name]
+    d = torch.from_numpy(data)
+    dd = _card_view(card, d, aligned)
+    torch.full((d.numel() // block, 256), -1, dtype=torch.int32, device=card)  # freed
+    before = ops.launches["byte_histogram"]
+    got = bk.byte_histogram(dd, block=block)
+    assert ops.launches["byte_histogram"] == before + 1
+    assert torch.equal(got.cpu(), bk.histogram_plain(d, block))
+
+
+@pytest.mark.parametrize("aligned", [True, False])
+@pytest.mark.parametrize("name", list(byte_cases.LOOKUP))
+def test_table_lookup_equals_plain_on_cases(card, name, aligned):
+    """As above for the lookup; the tables are of several integer dtypes,
+    one strided, each cast to int32 as the reference casts it, and the
+    caller's table is left as it was."""
+    data, table = byte_cases.LOOKUP[name]
+    d = torch.from_numpy(data)
+    dd = _card_view(card, d, aligned)
+    tab = _card_table(card, table)
+    kept = tab.clone()
+    torch.full((d.numel(),), -1, dtype=torch.int32, device=card)  # freed
+    before = ops.launches["table_lookup"]
+    got = bk.table_lookup(dd, tab)
+    assert ops.launches["table_lookup"] == before + 1
+    assert got.dtype == torch.int32
+    assert torch.equal(got.cpu(), bk.lookup_plain(d, torch.from_numpy(table)))
+    assert torch.equal(tab, kept) and tab.dtype == kept.dtype
+
+
+@pytest.mark.parametrize("name,n,block", [
+    ("byte_histogram", 10 << 20, 1 << 15), ("byte_histogram", 3 << 20, 1 << 20),
+    ("byte_histogram", 3 * 49152, 49152), ("byte_histogram", 1 << 12, 128),
+    ("table_lookup", 10 << 20, 0), ("table_lookup", 1024 * 12345, 0), ("table_lookup", 1024, 0)])
+def test_byte_kernels_write_every_output(card, name, n, block):
+    """The histogram's launch and the lookup's one-wave grid leave no output
+    element unwritten: the wrapper's output lands in memory the allocator
+    hands back filled with -1 (no count and no table entry here) and equals
+    the plain version."""
+    rng = np.random.default_rng(n)
+    d = torch.from_numpy(rng.integers(0, 256, n).astype(np.uint8))
+    table = torch.arange(256, dtype=torch.int32) * 7 + 1
+    dd, tab = d.to(card), table.to(card)
+    shape = (n // block, 256) if name == "byte_histogram" else (n,)
+    pool = torch.cuda.MemPool()  # holds only the filled memory, then the output
+    with torch.cuda.use_mem_pool(pool):
+        filled = torch.full(shape, -1, dtype=torch.int32, device=card)
+        where = filled.data_ptr()
+        del filled
+        if name == "byte_histogram":
+            out = bk.byte_histogram(dd, block=block)
+        else:
+            out = bk.table_lookup(dd, tab)
+    assert out.data_ptr() == where  # the filled memory, handed back
+    want = bk.histogram_plain(d, block) if name == "byte_histogram" else bk.lookup_plain(d, table)
+    assert torch.equal(out.cpu(), want)

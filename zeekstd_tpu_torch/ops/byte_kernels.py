@@ -29,7 +29,7 @@ def histogram_plain(data: torch.Tensor, block: int = 1 << 15) -> torch.Tensor:
 
 
 def lookup_plain(data: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
-    """uint8[n], int32[256] -> int32[n]: ``table[data[i]]``."""
+    """uint8[n], a 256-entry integer table -> int32[n]: ``table[data[i]]``."""
     return table.to(torch.int32)[data.to(torch.int64)]
 
 
@@ -54,7 +54,8 @@ def byte_histogram(data: torch.Tensor, block: int = 1 << 15) -> torch.Tensor:
 
 
 def table_lookup(data: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
-    """``out[i] = table[data[i]]``: uint8[n], int32[256] -> int32[n]
+    """``out[i] = table[data[i]]``: uint8[n], a 256-entry table of any
+    integer dtype (cast to int32, as the reference casts it) -> int32[n]
     (``n % 1024 == 0``)."""
     n = data.shape[0]
     if n % 1024 != 0:
@@ -64,10 +65,12 @@ def table_lookup(data: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
     if data.device.type == "cpu":
         return lookup_plain(data, table)
     check_cuda("data", data, torch.uint8)
-    check_cuda("table", table)
+    if not table.is_cuda:
+        raise ValueError("table must be a CUDA tensor")
+    tab = table.to(device=data.device, dtype=torch.int32).contiguous()
     out = torch.empty(n, dtype=torch.int32, device=data.device)
     fn = kernel_fn("zk_table_lookup_launch", [P, L, P, P, P])
-    rc = fn(ptr(data), n, ptr(table), ptr(out), stream())
+    rc = fn(ptr(data), n, ptr(tab), ptr(out), stream())
     launches["table_lookup"] += 1
     check_rc("table_lookup", rc)
     return out
