@@ -82,6 +82,32 @@ Phases (any failure raises; nothing is caught):
                route's inputs; the FSE-decode kernel's sequences, ms,
                ns and cycles per step of its longest row, and its rows
                staged whole or windowed ([timing] fse_decode).
+  5. streaming and CLI - the same 10 MiB text through the entry points a
+               user calls, each counted between a reset and a read of the
+               launch counts: (a) the streaming Encoder on the tpu backend
+               (1 MiB frames, checksums on, 128 KiB writes) at levels 1 and
+               3 must write compress_archive's archive plus its Foot table
+               and launch match and FSE (level 1), both reachability
+               kernels and FSE (level 3); (b) the Decoder on the tpu backend
+               over both archives: the whole, frames 3-5, a window across
+               frames 2-3, 16 seek/reads of 4 KiB, and a flipped bit in
+               frame 4 that must raise an errors.py error (ring decoder at
+               level 1, wide at level 3); (c) the patch pair through
+               compress_with_prefix and a Decoder with the prefix; (d) the
+               compressed policy at a 256 KiB threshold on the text (match
+               kernel) and at 6000 on the 256 KiB input (1500-byte probe
+               steps through the parallel parse, whose reachability runs
+               as torch pointer doubling at that width; equal to the CPU
+               port's):
+               round trips, every non-final frame at least half the
+               threshold; (e) the CLI in process (compress --backend tpu -s
+               1M -l 3, equal to the level-3 archive; list; decompress
+               --from-frame 2 --to-frame 4; the whole) and once as python
+               -m zeekstd_tpu_torch compress; (f) [timing] streaming: 5
+               warm streaming encodes and decodes per level beside
+               compress_archive and decompress_archive (host bytes in and
+               out, checksums on), decoder dispatches per decode, and the
+               fenced phase split of one streaming and one archive decode.
   table      - each kernel's row: the wrapper's CUDA-event time at its
                path's shapes; for the byte histogram, the table lookup and
                the two reachability kernels the device time alone instead
@@ -89,7 +115,8 @@ Phases (any failure raises; nothing is caught):
                graph, cold (rotated over copies of the inputs and outputs
                that exceed 2.4 times the L2) and warm ([timing] reach); the byte kernels also cold at 160 MiB (16 copies of
                the text) and their library calls on rotated copies
-               ([timing] bytes).
+               ([timing] bytes). Launches add up phases 3, 3b, 3c (each
+               route), the byte kernels' run and phase 5.
 
 Prints the card's name and power limit, one JSON line with the kernel
 table, and as its last line {"ok": true, "device": {...}}. With --out
@@ -97,6 +124,8 @@ DIR it also writes the full results to DIR/chip_smoke.json.
 """
 
 import argparse
+import contextlib
+import io
 import json
 import os
 import random
@@ -109,6 +138,7 @@ import numpy as np
 import torch
 
 MIB = 1 << 20
+ROOT = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate
 
 
@@ -849,6 +879,218 @@ def time_routes(zt, data, dev, smi):
     return out
 
 
+def stream_encode(zt, data, dev, level, policy=None, prefix=None, write=128 << 10):
+    """The streaming Encoder's archive (tpu backend on ``dev``, checksums
+    on): ``data`` fed in ``write``-byte pieces, as the CLI reads."""
+    buf = io.BytesIO()
+    policy = policy or zt.FrameSizePolicy.uncompressed(MIB)
+    enc = (zt.EncodeOptions().with_backend("tpu").with_device(dev)
+           .with_frame_size_policy(policy).with_compression_level(level)
+           .with_checksum_flag(True).into_encoder(buf))
+    for i in range(0, len(data), write):
+        enc.compress_with_prefix(data[i : i + write], prefix)
+    enc.finish()
+    return buf.getvalue()
+
+
+def stream_decoder(zt, archive, dev, **kw):
+    """A Decoder on the tpu backend over ``archive`` (``with_<name>`` for
+    each keyword)."""
+    opts = zt.DecodeOptions(zt.BytesWrapper(archive)).with_backend("tpu").with_device(dev)
+    for name, value in kw.items():
+        opts = getattr(opts, "with_" + name)(value)
+    return opts.into_decoder()
+
+
+def counted(ops, fn):
+    """(fn(), the kernel launches it made)."""
+    ops.reset_launches()
+    out = fn()
+    return out, dict(ops.launches)
+
+
+def need(counts, names, what):
+    missing = [k for k in names if counts[k] <= 0]
+    if missing:
+        raise AssertionError(f"{what}: kernels {missing} were not launched ({counts})")
+
+
+def check_decoder(zt, archive, data, dev):
+    """Phase 5b on one archive: the whole read, frames 3-5, a window across
+    the boundary of frames 2 and 3, seek/read in 4 KiB steps for 64 KiB,
+    and a flipped bit in frame 4 that must raise an errors.py error."""
+    st = zt.SeekTable.from_bytes(archive)
+    assert stream_decoder(zt, archive, dev).read(-1) == data, "Decoder: whole read"
+    got = stream_decoder(zt, archive, dev, lower_frame=3, upper_frame=5).read(-1)
+    assert got == data[st.frame_start_decomp(3) : st.frame_end_decomp(5)], "frames 3-5"
+    dec = stream_decoder(zt, archive, dev)
+    edge = st.frame_start_decomp(3)
+    dec.set_offset(edge - 5000)
+    dec.set_offset_limit(edge + 7000)
+    assert dec.read(-1) == data[edge - 5000 : edge + 7000], "window across frames 2-3"
+    dec.set_offset_limit(len(data))
+    at = st.frame_start_decomp(6) - 30000
+    dec.seek(at)
+    for k in range(16):
+        assert dec.read(4096) == data[at + 4096 * k : at + 4096 * (k + 1)], "seek/read"
+    assert dec.tell() == at + (64 << 10)
+    mid = (st.frame_start_comp(4) + st.frame_end_comp(4)) // 2
+    bad = bytearray(archive)
+    bad[mid] ^= 1 << 3
+    try:
+        stream_decoder(zt, bytes(bad), dev, lower_frame=4, upper_frame=4).read(-1)
+    except zt.ZeekstdError as e:
+        return f"error ({type(e).__name__}: {e})"
+    raise AssertionError("a flipped bit in frame 4 did not raise an errors.py error")
+
+
+def time_streaming(zt, ops, data, archive, level, dev, smi):
+    """Phase 5f at one level: 5 warm streaming encodes and decodes (host
+    bytes in and out) beside ``compress_archive``/``decompress_archive`` on
+    the same input and archive; the device dispatches of each decode; the
+    fenced phase split of one streaming and one archive decode."""
+    n = len(data)
+
+    def runs(fn):
+        fn()
+        samples = []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            samples.append(time.perf_counter() - t0)
+        return med_spread(n, samples)
+
+    st = zt.SeekTable.from_bytes(archive)
+    enc = runs(lambda: stream_encode(zt, data, dev, level))
+    dec = runs(lambda: stream_decoder(zt, archive, dev).read(-1))
+    a_enc = runs(lambda: zt.compress_archive(data, frame_size=MIB, level=level, checksum=True,
+                                             device=dev))
+    a_dec = runs(lambda: zt.decompress_archive(archive, st, device=dev))
+    decoder = "ring_decode" if level == 1 else "wide_decode"
+    _, c_stream = counted(ops, lambda: stream_decoder(zt, archive, dev).read(-1))
+    _, c_arch = counted(ops, lambda: zt.decompress_archive(archive, st, device=dev))
+    phases = {}
+    zt.set_timing(2)
+    for tag, fn in (("stream", lambda: stream_decoder(zt, archive, dev).read(-1)),
+                    ("archive", lambda: zt.decompress_archive(archive, st, device=dev))):
+        zt.phase_records.clear()
+        fn()
+        phases[tag] = dict(zt.phase_records)
+    zt.set_timing(0)
+    log(f"[timing] streaming level {level}: Encoder MiB/s median {enc[0]:.3f} "
+        f"[{enc[1]:.3f}-{enc[2]:.3f}] x5, compress_archive {a_enc[0]:.3f} "
+        f"[{a_enc[1]:.3f}-{a_enc[2]:.3f}]; Decoder {dec[0]:.3f} [{dec[1]:.3f}-{dec[2]:.3f}], "
+        f"decompress_archive {a_dec[0]:.3f} [{a_dec[1]:.3f}-{a_dec[2]:.3f}] (host bytes in and "
+        f"out, checksums on); {decoder} dispatches per decode: Decoder {c_stream[decoder]} "
+        f"({st.num_frames} frames), decompress_archive {c_arch[decoder]}  ({smi})")
+    for tag, ph in phases.items():
+        log(f"[timing] streaming level {level} {tag} decode phases (fenced, s per 10 MiB): "
+            + ", ".join(f"{k} {v:.6f}" for k, v in sorted(ph.items(), key=lambda kv: -kv[1])))
+    return dict(enc_mibs=enc, dec_mibs=dec, archive_enc_mibs=a_enc, archive_dec_mibs=a_dec,
+                dispatches=dict(stream=c_stream[decoder], archive=c_arch[decoder],
+                                frames=st.num_frames), dec_phases=phases)
+
+
+def check_streaming(zt, ops, data, small, archives, dev, smi):
+    """Phase 5: the streaming Encoder and Decoder and the CLI on the card.
+    ``archives`` maps level 1 and 3 to phase 3's and 3b's archives
+    (``compress_archive`` at 1 MiB frames, checksums on, plus the Foot
+    table). Returns (results, the launches of the counted runs, summed)."""
+    from zeekstd_tpu_torch import cli
+
+    res, total = {}, {k: 0 for k in ops.launches}
+
+    def count(fn, names, what):
+        out, c = counted(ops, fn)
+        log(f"[streaming] {what}: launches {c}")
+        need(c, names, what)
+        for k, v in c.items():
+            total[k] += v
+        return out
+
+    # a. the Encoder equals compress_archive plus its table
+    for level, names in ((1, ("match", "fse")), (3, ("reach_tables", "reach_mark", "fse"))):
+        got = count(lambda: stream_encode(zt, data, dev, level), names, f"Encoder level {level}")
+        assert got == archives[level], f"level {level}: streaming archive differs"
+        log(f"[streaming] Encoder level {level}: equal to compress_archive + Foot table "
+            f"({len(got)} bytes)")
+    # b. the Decoder over both archives
+    for level, name in ((1, "ring_decode"), (3, "wide_decode")):
+        res[f"corrupt{level}"] = count(lambda: check_decoder(zt, archives[level], data, dev),
+                                       (name,), f"Decoder level {level}")
+        log(f"[streaming] Decoder level {level}: whole, frames 3-5, a window across frames "
+            f"2-3 and 16 reads of 4 KiB exact; flipped bit -> {res[f'corrupt{level}']}")
+    # c. patch
+    old, new = patch_pair(data)
+    patch = count(lambda: stream_encode(zt, new, dev, 3, prefix=old), ("fse",), "patch encode")
+    got = count(lambda: stream_decoder(zt, patch, dev, prefix=old).read(-1), (), "patch decode")
+    assert got == new, "patch round trip"
+    log(f"[streaming] patch: {len(new)} bytes against a {len(old)}-byte prefix -> "
+        f"{len(patch)} bytes, back exactly")
+    # d. the compressed policy
+    # At 256 KiB the probe's 64 KiB steps and the cut frames take the match
+    # kernel; at 6000 the 1500-byte probe steps take the parallel parse,
+    # whose reachability does not tile 1500-byte rows and runs as torch
+    # pointer doubling (the reference's route rule), and the cut frames
+    # (32 KiB rows) the match kernel.
+    for thr, inp, names in ((256 << 10, data, ("match", "fse")),
+                            (6000, small, ("match", "fse"))):
+        pol = zt.FrameSizePolicy.compressed(thr)
+        blob = count(lambda: stream_encode(zt, inp, dev, 1, policy=pol), names,
+                     f"compressed policy {thr}")
+        st = zt.SeekTable.from_bytes(blob)
+        sizes = [st.frame_size_comp(i) for i in range(st.num_frames)]
+        assert st.num_frames >= 3 and min(sizes[:-1]) >= thr // 2, sizes
+        assert stream_decoder(zt, blob, dev).read(-1) == inp, "compressed policy round trip"
+        if inp is small:
+            assert blob == stream_encode(zt, inp, "cpu", 1, policy=pol), "card differs from CPU"
+        log(f"[streaming] compressed policy {thr} (probe step {max(thr // 4, 1024)}): "
+            f"{st.num_frames} frames, compressed sizes {min(sizes[:-1])}-{max(sizes)}, back "
+            f"exactly" + ("; equal to the CPU port's" if inp is small else ""))
+    # e. the CLI, in process and once as a module
+    work = os.path.join(ROOT, "build", "smoke_cli")
+    os.makedirs(work, exist_ok=True)
+    src, arc = os.path.join(work, "in.bin"), os.path.join(work, "in.bin.zst")
+    with open(src, "wb") as fh:
+        fh.write(data)
+
+    def read(path):
+        with open(path, "rb") as fh:
+            return fh.read()
+
+    def run(*argv):
+        assert cli.main(list(argv)) == 0, argv
+
+    count(lambda: run("-q", "compress", src, "-f", "--backend", "tpu", "-s", "1M", "-l", "3"),
+          ("reach_tables", "reach_mark", "fse"), "CLI compress")
+    assert read(arc) == archives[3], "CLI archive differs from compress_archive + table"
+    listing = io.StringIO()
+    with contextlib.redirect_stdout(listing):
+        run("list", arc)
+    count(lambda: run("-q", "d", arc, "-o", os.path.join(work, "range.bin"), "-f", "--backend",
+                      "tpu", "--from-frame", "2", "--to-frame", "4"), ("wide_decode",),
+          "CLI decompress frames 2-4")
+    assert read(os.path.join(work, "range.bin")) == data[2 * MIB : 5 * MIB]
+    count(lambda: run("-q", "decompress", arc, "-o", os.path.join(work, "out.bin"), "-f",
+                      "--backend", "tpu"), ("wide_decode",), "CLI decompress")
+    assert read(os.path.join(work, "out.bin")) == data
+    t0 = time.perf_counter()
+    subprocess.run([sys.executable, "-m", "zeekstd_tpu_torch", "-q", "compress", src, "-o",
+                    os.path.join(work, "module.zst"), "-f", "--backend", "tpu", "-s", "1M",
+                    "-l", "3"], cwd=ROOT, check=True, timeout=300)
+    assert read(os.path.join(work, "module.zst")) == archives[3], "module entry differs"
+    log(f"[streaming] CLI: compress, list ({listing.getvalue().splitlines()[-1].split()[0]} "
+        f"frames), decompress frames 2-4 and whole exact; python -m zeekstd_tpu_torch "
+        f"compress on the card equal, {time.perf_counter() - t0:.1f}s")
+    # f. timing
+    for level in (1, 3):
+        res[f"level{level}"] = time_streaming(zt, ops, data, archives[level], level, dev, smi)
+    res["launches"] = total
+    return res, total
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", help="directory for chip_smoke.json")
@@ -1103,6 +1345,10 @@ def main():
     # --- 4c. route timing -------------------------------------------------
     results["route_timing"] = time_routes(zt, data, dev, smi)
 
+    # --- 5. the streaming Encoder and Decoder and the CLI -------------------
+    results["streaming"], counts5 = check_streaming(
+        zt, ops, data, small, {1: archive, 3: archive3}, dev, smi)
+
     sources = {
         "match": ("zeekstd_tpu_torch/csrc/match_kernel.cu", "zeekstd_tpu/ops/match_kernel.py:512"),
         "reach_tables": ("zeekstd_tpu_torch/csrc/reach_kernel.cu",
@@ -1128,10 +1374,10 @@ def main():
     # (their plain comparison is phase 3c's); the FSE kernel is also timed
     # at the level-3 shapes; the byte kernels, on no archive path (as in
     # the reference), on the 10 MiB text of phase 2c. Launches add up the
-    # counted runs: phases 3 and 3b, each route of 3c, and the byte
-    # kernels' own run.
+    # counted runs: phases 3 and 3b, each route of 3c, the byte kernels' own
+    # run, and the counted runs of phase 5.
     runs = [counts, counts3, routes["serial"]["launches"], routes["doubling"]["launches"],
-            counts_bytes]
+            counts_bytes, counts5]
     serial_calls, serial_checked = route_calls["serial"]
     table, extra = [], {}
     for name, path, rec_m in (("match", 1, main_rec.calls), ("reach_tables", 3, main_rec3.calls),

@@ -5,6 +5,7 @@ with one: ``python -m pytest -m gpu tests/test_torch_gpu.py``. This file
 imports no JAX, so it runs where JAX is not installed.
 """
 
+import io
 import os
 
 import numpy as np
@@ -13,6 +14,7 @@ import torch
 
 import zeekstd_tpu_torch as zt
 from zeekstd_tpu_torch import decode_routes, ops, plan
+from zeekstd_tpu_torch.cli import main as cli_main
 from zeekstd_tpu_torch.ops import byte_kernels as bk
 from zeekstd_tpu_torch.ops import decode_kernel as dk
 from zeekstd_tpu_torch.ops import entropy
@@ -796,3 +798,72 @@ def test_byte_kernels_write_every_output(card, name, n, block):
     assert out.data_ptr() == where  # the filled memory, handed back
     want = bk.histogram_plain(d, block) if name == "byte_histogram" else bk.lookup_plain(d, table)
     assert torch.equal(out.cpu(), want)
+
+
+# --- the streaming Encoder and Decoder and the CLI on the card -------------
+
+
+def _stream_encode(level, device, data, fsize=64 << 10):
+    """The streaming Encoder's archive (tpu backend, 48 KiB writes)."""
+    buf = io.BytesIO()
+    enc = (zt.EncodeOptions().with_backend("tpu").with_device(device)
+           .with_frame_size_policy(zt.FrameSizePolicy.uncompressed(fsize))
+           .with_compression_level(level).with_checksum_flag(True).into_encoder(buf))
+    step = 48 << 10
+    for i in range(0, len(data), step):
+        enc.write(data[i : i + step])
+    enc.finish()
+    return buf.getvalue()
+
+
+@pytest.mark.parametrize("level", [1, 3])
+def test_streaming_encoder_on_card_equals_cpu(card, level):
+    data = _data(640 << 10)
+    ops.reset_launches()
+    archive = _stream_encode(level, card, data)
+    counts = dict(ops.launches)
+    assert archive == _stream_encode(level, "cpu", data)
+    assert counts["fse"] > 0
+    assert counts["match" if level == 1 else "reach_tables"] > 0
+
+
+@pytest.mark.parametrize("level,route", [(1, "ring"), (3, "wide")])
+def test_streaming_decoder_on_card_round_trips(card, level, route, monkeypatch):
+    """64 KiB windows take the ring route; ZEEKSTD_TPU_RING=0 the wide one."""
+    if route == "wide":
+        monkeypatch.setenv("ZEEKSTD_TPU_RING", "0")
+    else:
+        monkeypatch.delenv("ZEEKSTD_TPU_RING", raising=False)
+    data = _data(640 << 10)
+    archive = _stream_encode(level, "cpu", data)
+    st = zt.SeekTable.from_seekable(zt.BytesWrapper(archive))
+
+    def decoder(**kw):
+        opts = zt.DecodeOptions(zt.BytesWrapper(archive)).with_backend("tpu").with_device(card)
+        for name, value in kw.items():
+            opts = getattr(opts, "with_" + name)(value)
+        return opts.into_decoder()
+
+    ops.reset_launches()
+    assert decoder().read(-1) == data
+    counts = dict(ops.launches)
+    assert counts[route + "_decode"] == st.num_frames
+    assert decoder(lower_frame=3, upper_frame=5).read(-1) == data[3 * 65536 : 6 * 65536]
+    dec = decoder()
+    dec.seek(65536 - 1000)
+    assert dec.read(3000) == data[65536 - 1000 : 65536 + 2000]
+
+
+def test_cli_round_trip_on_card(card, tmp_path):
+    data = _data(640 << 10)
+    src, arc, out = tmp_path / "in.bin", tmp_path / "in.bin.zst", tmp_path / "out.bin"
+    src.write_bytes(data)
+    assert cli_main(["-q", "compress", str(src), "--backend", "tpu", "-s", "64K", "-l", "3"]) == 0
+    assert cli_main(["-q", "compress", str(src), "-o", str(tmp_path / "cpu.zst"), "--backend",
+                     "tpu", "--device", "cpu", "-s", "64K", "-l", "3"]) == 0
+    assert arc.read_bytes() == (tmp_path / "cpu.zst").read_bytes()
+    assert cli_main(["-q", "decompress", str(arc), "-o", str(out), "--backend", "tpu"]) == 0
+    assert out.read_bytes() == data
+    assert cli_main(["-q", "d", str(arc), "-o", str(out), "-f", "--backend", "tpu",
+                     "--from-frame", "2", "--to-frame", "4"]) == 0
+    assert out.read_bytes() == data[2 * 65536 : 5 * 65536]

@@ -79,6 +79,7 @@ def test_sources_import_neither_jax_nor_the_jax_package():
     "codec/bitstream", "codec/fse", "codec/huffman", "codec/literals",
     "codec/sequences", "codec/seq_encode", "codec/frame",
     "codec/compress", "codec/match", "codec/match_fast", "codec/block_compress",
+    "codec/decompress",
 ])
 def test_host_modules_are_verbatim_copies(mod):
     with open(os.path.join(ROOT, "zeekstd_tpu", mod + ".py")) as a, \

@@ -1,4 +1,4 @@
-"""zeekstd_tpu_torch - the PyTorch/CUDA port of zeekstd_tpu's archive path.
+"""zeekstd_tpu_torch - the PyTorch/CUDA port of zeekstd_tpu.
 
 Seekable-Zstandard archive encode at levels 1-19 (with patch-mode
 prefixes) and archive and frame decode on an NVIDIA H100 (the fused
@@ -10,8 +10,13 @@ sequence executor, and the byte histogram and table lookup. Archives are
 byte-identical to ``zeekstd_tpu.tpu_archive.tpu_compress_archive``; this
 package imports neither JAX nor ``zeekstd_tpu``.
 
-Entry points run on the CUDA card unless called with ``device="cpu"``,
-which runs each kernel's plain PyTorch version.
+The streaming ``Encoder``/``Decoder`` (``encode``, ``decode``) and the
+``zeekstd`` command line (``python -m zeekstd_tpu_torch``) reach the card
+through their ``tpu`` backend; ``python`` runs the host codec.
+
+Entry points run on the CUDA card unless called with ``device="cpu"``
+(``with_device("cpu")``, ``--device cpu``), which runs each kernel's
+plain PyTorch version.
 """
 
 from .archive import (
@@ -21,10 +26,30 @@ from .archive import (
     decompress_archive,
     decompress_frame,
 )
+from .codec.compress import CCtx
+from .codec.decompress import DCtx
+from .decode import DecodeOptions, Decoder
 from .device import (from_reference_arrays, phase_records, phase_timer, resolve_device,
                      set_timing)
-from .errors import ZeekstdError, ZstdError
-from .seek_table import Format, SeekTable
+from .encode import (
+    CompressionProgress,
+    EncodeOptions,
+    Encoder,
+    EpilogueProgress,
+    FrameSizePolicy,
+    RawEncoder,
+)
+from .errors import (
+    FrameIndexTooLargeError,
+    NumberConversionError,
+    OffsetOutOfRangeError,
+    ZeekstdError,
+    ZstdError,
+)
+from .seek_table import Format, Parser, SeekTable, Serializer
+from .seekable import BytesWrapper, End, FileWrapper, Seekable, Start
+
+__version__ = "0.1.0"
 
 __all__ = [
     "StagedInput",
@@ -37,8 +62,28 @@ __all__ = [
     "phase_timer",
     "resolve_device",
     "set_timing",
+    "CCtx",
+    "DCtx",
+    "DecodeOptions",
+    "Decoder",
+    "CompressionProgress",
+    "EpilogueProgress",
+    "EncodeOptions",
+    "Encoder",
+    "FrameSizePolicy",
+    "RawEncoder",
+    "Format",
+    "Parser",
+    "SeekTable",
+    "Serializer",
+    "BytesWrapper",
+    "End",
+    "FileWrapper",
+    "Seekable",
+    "Start",
     "ZeekstdError",
     "ZstdError",
-    "Format",
-    "SeekTable",
+    "OffsetOutOfRangeError",
+    "FrameIndexTooLargeError",
+    "NumberConversionError",
 ]

@@ -964,13 +964,15 @@ def decompress_frame(frame: bytes, pos: int = 0, verify_checksum: bool = True,
     (device Huffman and FSE decode, pointer doubling), which also takes
     the frames past a fused-route guard."""
     dev = resolve_device(device)
-    hdr, plan, fpos = _plan_frame(frame, pos)
-    plans = [(hdr, plan, fpos)]
-    lay = plan_mod.collect(plans)
+    with phase_timer("dec.plan"):
+        hdr, plan, fpos = _plan_frame(frame, pos)
+        plans = [(hdr, plan, fpos)]
+        lay = plan_mod.collect(plans)
     prefixes = [prefix] if prefix else None
     out = NotImplemented
     if exec_mode() == "fused":
-        dec_list = _huf_batch_host(lay.streams)
+        with phase_timer("dec.huf_host"):
+            dec_list = _huf_batch_host(lay.streams)
         out = _fused_exec_dispatch(
             frame, plans, lay, dec_list, None, verify_checksum, False, dev, prefixes=prefixes,
         )
