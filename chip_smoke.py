@@ -5,7 +5,7 @@
 
 Phases (any failure raises; nothing is caught):
   1. build   - the CUDA kernel library (one nvcc per csrc/*.cu, in
-               parallel) and the host library; prints each kernel's
+               parallel) and the native runtime (g++); prints each kernel's
                registers, shared memory and spills (nvcc -Xptxas -v).
   2. kernels - a 256 KiB, 3-frame mixed input (text, an RLE run, random
                bytes, overlapping "abc" repeats) through the pipeline on
@@ -108,6 +108,26 @@ Phases (any failure raises; nothing is caught):
                compress_archive and decompress_archive (host bytes in and
                out, checksums on), decoder dispatches per decode, and the
                fenced phase split of one streaming and one archive decode.
+  6a. native - the native runtime (the default backend) on the card
+               machine's CPU, the 10 MiB text at levels 1 and 3 in 1 MiB
+               frames: compress_stream_mt with nthreads=1 and 0 (equal
+               blobs), decoded by decompress_stream_mt and, from a seek
+               table of the frame sizes, by decompress_archive on the card,
+               exactly; the default Encoder (level 3, checksums on) equals
+               with_backend("native") and the CLI's file with no --backend;
+               the CLI's list and decompress --backend tpu of it, and
+               compress --backend tpu then decompress with no --backend;
+               [timing] native: MiB/s medians of 5 with their spread of
+               both helpers per level and thread count (the host CPU's,
+               with os.cpu_count()).
+  6b. frame_codec - the per-frame device encoder on the card over the
+               10 MiB text in 1 MiB frames and the 256 KiB input: one FSE
+               launch per frame (the wide layout), each equal to its plain
+               version; the first frame and the 256 KiB frame equal the
+               CPU run's; every frame back through decompress_frame on the
+               card and the host codec; [timing] frame_codec: MiB/s median
+               of 5 with its spread and the fenced split (parse, host
+               decisions, entropy, assembly), and the wide FSE launch's time.
   table      - each kernel's row: the wrapper's CUDA-event time at its
                path's shapes; for the byte histogram, the table lookup and
                the two reachability kernels the device time alone instead
@@ -116,7 +136,7 @@ Phases (any failure raises; nothing is caught):
                that exceed 2.4 times the L2) and warm ([timing] reach); the byte kernels also cold at 160 MiB (16 copies of
                the text) and their library calls on rotated copies
                ([timing] bytes). Launches add up phases 3, 3b, 3c (each
-               route), the byte kernels' run and phase 5.
+               route), the byte kernels' run and phases 5, 6a and 6b.
 
 Prints the card's name and power limit, one JSON line with the kernel
 table, and as its last line {"ok": true, "device": {...}}. With --out
@@ -302,7 +322,7 @@ def compare(name, a, k, m):
         words, bits = m.fk.fse_encode(*a, **k)
         sync()
         t0 = time.perf_counter()
-        w0, b0 = m.fk.fse_plain(*a, k["SBd"], k["WBo"])
+        w0, b0 = m.fk.fse_plain(*a, k["SBd"], k["WBo"], k.get("ml"))
         t_plain = time.perf_counter() - t0
         w0, b0 = w0.to(words.device), b0.to(words.device)
         err = _max_err(bits, b0)
@@ -1091,6 +1111,190 @@ def check_streaming(zt, ops, data, small, archives, dev, smi):
     return res, total
 
 
+def mt_offsets(zt, sizes, n):
+    """The seek table of a ``compress_stream_mt`` blob of ``n`` bytes in
+    1 MiB frames, and its compressed and decompressed frame offsets."""
+    st = zt.SeekTable.from_frames((c, min(MIB, n - i * MIB)) for i, c in enumerate(sizes))
+    c_off, d_off = st.cumulative_offsets()
+    return st, [int(x) for x in c_off], [int(x) for x in d_off]
+
+
+def check_native(zt, ops, data, dev, smi):
+    """Phase 6a: the native runtime (``native/zeekstd_native.cpp``, g++ on
+    the card machine's CPU), the backend users get with no ``--backend``.
+    Returns (results, the launches of the counted runs, summed)."""
+    from zeekstd_tpu_torch import cli
+    from zeekstd_tpu_torch.native import loader
+
+    res, total = {}, {k: 0 for k in ops.launches}
+    decoders = ("ring_decode", "wide_decode", "exec", "fse_decode")
+    n = len(data)
+    for level in (1, 3):
+        blob, sizes = loader.compress_stream_mt(data, MIB, checksum=True, nthreads=1,
+                                                level=level)
+        assert (blob, sizes) == loader.compress_stream_mt(data, MIB, checksum=True,
+                                                          nthreads=0, level=level), \
+            f"level {level}: the threaded blob differs from the one-thread blob"
+        st, c_off, d_off = mt_offsets(zt, sizes, n)
+        assert st.size_comp == len(blob) and st.num_frames == 10
+        assert loader.decompress_stream_mt(blob, c_off, d_off, nthreads=0) == data
+        out, c = counted(ops, lambda: zt.decompress_archive(blob, st, device=dev))
+        assert out == data, f"level {level}: the card's decode of the native blob differs"
+        if not any(c[k] for k in decoders):
+            raise AssertionError(f"level {level}: the card decoded without a decode kernel ({c})")
+        for k, v in c.items():
+            total[k] += v
+        res[f"ratio{level}"] = len(blob) / n
+        log(f"[native] level {level}: compress_stream_mt 10 MiB -> {len(blob)} bytes in "
+            f"{len(sizes)} frames, nthreads=1 and 0 equal; decompress_stream_mt and the "
+            f"card's decompress_archive exact (launches {c})")
+    # The default Encoder writes the native backend's archive; so does the CLI.
+    def encode(backend, level=3):
+        buf = io.BytesIO()
+        opts = (zt.EncodeOptions().with_frame_size_policy(zt.FrameSizePolicy.uncompressed(MIB))
+                .with_compression_level(level).with_checksum_flag(True))
+        if backend is not None:
+            opts = opts.with_backend(backend)
+        enc = opts.into_encoder(buf)
+        assert enc.raw._use_native()
+        for i in range(0, n, 128 << 10):
+            enc.write(data[i : i + (128 << 10)])
+        enc.finish()
+        return buf.getvalue()
+
+    default = encode(None)
+    assert default == encode("native"), "the default Encoder differs from the native backend"
+    assert zt.DecodeOptions(zt.BytesWrapper(default)).into_decoder().read(-1) == data
+    work = os.path.join(ROOT, "build", "smoke_native")
+    os.makedirs(work, exist_ok=True)
+    src = os.path.join(work, "in.bin")
+    with open(src, "wb") as fh:
+        fh.write(data)
+
+    def path(name):
+        return os.path.join(work, name)
+
+    def read(name):
+        with open(path(name), "rb") as fh:
+            return fh.read()
+
+    def run(*argv):
+        assert cli.main(list(argv)) == 0, argv
+
+    size = f"{MIB >> 10}K"
+    run("-q", "compress", src, "-o", path("auto.zst"), "-f", "-s", size)
+    assert read("auto.zst") == default, "the CLI's default archive differs from the Encoder's"
+    listing = io.StringIO()
+    with contextlib.redirect_stdout(listing):
+        run("list", path("auto.zst"))
+    out, c = counted(ops, lambda: run("-q", "decompress", path("auto.zst"), "-o",
+                                      path("auto.bin"), "-f", "--backend", "tpu"))
+    assert read("auto.bin") == data, "CLI: native archive, card decode"
+    if not any(c[k] for k in decoders):
+        raise AssertionError(f"CLI decompress --backend tpu launched no decode kernel ({c})")
+    for k, v in c.items():
+        total[k] += v
+    _, c = counted(ops, lambda: run("-q", "compress", src, "-o", path("tpu.zst"), "-f", "-s",
+                                    size, "--backend", "tpu"))
+    need(c, ("reach_tables", "reach_mark", "fse"), "CLI compress --backend tpu")
+    for k, v in c.items():
+        total[k] += v
+    run("-q", "decompress", path("tpu.zst"), "-o", path("tpu.bin"), "-f")
+    assert read("tpu.bin") == data, "CLI: card archive, native decode"
+    log(f"[native] default Encoder (level 3, 1 MiB frames) equals with_backend('native') "
+        f"({len(default)} bytes); CLI with no --backend writes it, list "
+        f"({listing.getvalue().splitlines()[-1].split()[0]} frames), decompress --backend tpu "
+        f"exact; compress --backend tpu, decompress with no --backend exact")
+    # Host rates: the card machine's CPU, not the card.
+    for level in (1, 3):
+        blob, sizes = loader.compress_stream_mt(data, MIB, checksum=True, level=level)
+        _, c_off, d_off = mt_offsets(zt, sizes, n)
+        into = bytearray(n)
+        for nt in (1, 0):
+            enc = med_spread(n, host_samples(lambda: loader.compress_stream_mt(
+                data, MIB, checksum=True, nthreads=nt, level=level)))
+            dec = med_spread(n, host_samples(lambda: loader.decompress_stream_mt(
+                blob, c_off, d_off, nthreads=nt, into=into)))
+            res[f"level{level}_nthreads{nt}"] = dict(enc_mibs=enc, dec_mibs=dec)
+            log(f"[timing] native level {level} nthreads={nt}: compress_stream_mt MiB/s median "
+                f"{enc[0]:.3f} [{enc[1]:.3f}-{enc[2]:.3f}] x5, decompress_stream_mt "
+                f"{dec[0]:.3f} [{dec[1]:.3f}-{dec[2]:.3f}] x5 (host CPU, os.cpu_count() "
+                f"{os.cpu_count()}; card {smi})")
+    res["cpu_count"] = os.cpu_count()
+    res["launches"] = total
+    return res, total
+
+
+def host_samples(fn, reps=5):
+    """Seconds of ``reps`` calls of ``fn`` after one warm call."""
+    fn()
+    samples = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        samples.append(time.perf_counter() - t0)
+    return samples
+
+
+def check_frame_codec(zt, ops, data, small, dev, smi, mods):
+    """Phase 6b: the per-frame device encoder (``frame_codec``) on the card
+    over the 10 MiB text in 1 MiB frames and over the 256 KiB input.
+    Returns (results, the launches of the counted run, its FSE calls, the
+    FSE kernel's max error against its plain version)."""
+    from zeekstd_tpu_torch import frame_codec
+    from zeekstd_tpu_torch.codec.decompress import decompress_frame as host_decompress_frame
+
+    res = {}
+    pieces = [data[i : i + MIB] for i in range(0, len(data), MIB)] + [small]
+    ops.reset_launches()
+    with Recorder() as rec:
+        frames = [frame_codec.compress_frame(p, checksum=True, device=dev) for p in pieces]
+    counts = dict(ops.launches)
+    if counts["fse"] != len(pieces):
+        raise AssertionError(f"frame_codec: {counts['fse']} FSE launches for {len(pieces)} "
+                             "frames, not one each")
+    for i in (0, len(pieces) - 1):
+        assert frames[i] == frame_codec.compress_frame(pieces[i], checksum=True, device="cpu"), \
+            f"frame_codec: the card's frame {i} differs from the CPU run's"
+    for p, f in zip(pieces, frames):
+        assert zt.decompress_frame(f, device=dev) == (p, len(f)), "card decode"
+        assert host_decompress_frame(f) == (p, len(f)), "host decode"
+    err = 0
+    for a, k in rec.calls["fse"]:
+        err = max(err, compare("fse", a, k, mods)[0])
+    log(f"[frame_codec] 10 MiB in 1 MiB frames and the 256 KiB input: {sum(map(len, frames))} "
+        f"bytes; frames 0 and 256 KiB equal to the CPU run's; every frame back through "
+        f"decompress_frame on the card and the host codec; FSE (wide layout) equal to its "
+        f"plain version on every launch (max abs err {err}); launches {counts}")
+    a, k = rec.calls["fse"][0]
+    ms, result = time_kernel("fse", a, k, mods, reps=5)
+    nseq = int(a[1].reshape(-1, mods.fk.JMETA_COLS)[:, mods.fk.J_NSEQ].clamp(min=0).sum())
+    moved = moved_bytes("fse", a, result, mods) + nseq * 4  # and the ml row
+    res["fse_wide"] = dict(ms=ms, bound_ms=moved / HBM_BYTES_PER_S * 1e3, moved=moved)
+    log(f"[timing] fse wide layout (phase 6b, one 1 MiB frame): {ms:.4f} ms/launch, bound "
+        f"{res['fse_wide']['bound_ms']:.6f} ms ({moved} bytes)")
+    text = pieces[:-1]
+    n = len(data)
+
+    def encode_all():
+        for p in text:
+            frame_codec.compress_frame(p, checksum=True, device=dev)
+        torch.cuda.synchronize()
+
+    enc = med_spread(n, host_samples(encode_all))
+    zt.set_timing(2)
+    zt.phase_records.clear()
+    encode_all()
+    phases = dict(zt.phase_records)
+    zt.set_timing(0)
+    res.update(enc_mibs=enc, phases=phases, launches=counts, fse_err=err)
+    log(f"[timing] frame_codec: 10 MiB in 1 MiB frames, MiB/s median {enc[0]:.3f} "
+        f"[{enc[1]:.3f}-{enc[2]:.3f}] x5 (host bytes in and out, checksums on)  ({smi})")
+    log("[timing] frame_codec phases (fenced, s per 10 MiB): " + ", ".join(
+        f"{k} {v:.6f}" for k, v in sorted(phases.items(), key=lambda kv: -kv[1])))
+    return res, counts, err
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", help="directory for chip_smoke.json")
@@ -1349,6 +1553,12 @@ def main():
     results["streaming"], counts5 = check_streaming(
         zt, ops, data, small, {1: archive, 3: archive3}, dev, smi)
 
+    # --- 6. the native runtime and the per-frame device encoder -----------
+    results["native"], counts6a = check_native(zt, ops, data, dev, smi)
+    results["frame_codec"], counts6b, err6 = check_frame_codec(zt, ops, data, small, dev, smi,
+                                                               mods)
+    small_err["fse"] = max(small_err["fse"], err6)
+
     sources = {
         "match": ("zeekstd_tpu_torch/csrc/match_kernel.cu", "zeekstd_tpu/ops/match_kernel.py:512"),
         "reach_tables": ("zeekstd_tpu_torch/csrc/reach_kernel.cu",
@@ -1375,9 +1585,9 @@ def main():
     # at the level-3 shapes; the byte kernels, on no archive path (as in
     # the reference), on the 10 MiB text of phase 2c. Launches add up the
     # counted runs: phases 3 and 3b, each route of 3c, the byte kernels' own
-    # run, and the counted runs of phase 5.
+    # run, the counted runs of phase 5, and those of phases 6a and 6b.
     runs = [counts, counts3, routes["serial"]["launches"], routes["doubling"]["launches"],
-            counts_bytes, counts5]
+            counts_bytes, counts5, counts6a, counts6b]
     serial_calls, serial_checked = route_calls["serial"]
     table, extra = [], {}
     for name, path, rec_m in (("match", 1, main_rec.calls), ("reach_tables", 3, main_rec3.calls),

@@ -9,7 +9,9 @@ a patch made with ``--patch-from`` and applied with ``--patch-apply``
 (``tests/test_cli.py::test_cli_backend_tpu_roundtrip``). Every output
 file and the ``list`` output are equal. Also: ``python -m
 zeekstd_tpu_torch --version``; ``--backend tpu`` with no card and no
-``--device cpu`` exits non-zero and writes nothing; the refusals.
+``--device cpu`` exits non-zero and writes nothing; the refusals. The
+cycle also runs on ``native`` and with no ``--backend`` (the native
+runtime), whose files equal the JAX CLI's.
 """
 
 import contextlib
@@ -39,11 +41,14 @@ def _text(n: int, seed: int = 3) -> bytes:
 
 DATA = _text(96 << 10)
 NEWER = DATA[:40000] + b"INSERTED-PATCH-CHUNK" + DATA[40000:]
+# "auto" runs the cycle with no --backend (the native runtime).
+BACKENDS = ["python", "tpu", "native", "auto"]
 
 
 def _commands(backend):
-    """(argv, output file or None for stdout) of the cycle on ``backend``."""
-    b = ["--backend", backend]
+    """(argv, output file or None for stdout) of the cycle on ``backend``
+    (``auto``: no ``--backend``, the default)."""
+    b = [] if backend == "auto" else ["--backend", backend]
     cmds = [
         (["-q", "compress", "in.bin", "-o", "in.zst", "-f", "-s", "16K"] + b, "in.zst"),
         (["list", "in.zst", "--detail", "--raw-bytes"], None),
@@ -91,14 +96,14 @@ def outputs(tmp_path_factory):
     with pytest.MonkeyPatch.context() as mp:
         mp.setenv("ZEEKSTD_TPU_EXEC", "fused")
         res = {}
-        for backend in ("python", "tpu"):
+        for backend in BACKENDS:
             for port, entry in ((False, ref_main), (True, main)):
                 d = tmp_path_factory.mktemp(f"{backend}_{'port' if port else 'ref'}")
                 res[backend, port] = _run(entry, d, backend, port)
     return res
 
 
-@pytest.mark.parametrize("backend", ["python", "tpu"])
+@pytest.mark.parametrize("backend", BACKENDS)
 def test_cli_outputs_equal_reference(outputs, backend):
     got, want = outputs[backend, True], outputs[backend, False]
     assert sorted(got) == sorted(want)
@@ -106,7 +111,7 @@ def test_cli_outputs_equal_reference(outputs, backend):
         assert got[name] == want[name], name
 
 
-@pytest.mark.parametrize("backend", ["python", "tpu"])
+@pytest.mark.parametrize("backend", BACKENDS)
 def test_cli_cycle_round_trips(outputs, backend):
     got = outputs[backend, True]
     assert got["full.bin"] == DATA
@@ -145,7 +150,6 @@ def test_tpu_backend_without_card_exits_and_writes_nothing(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("argv", [
-    ["--backend", "native"],
     ["--backend", "tpu", "--device", "cpu", "--frame-size-policy", "compressed"],
 ])
 def test_refused_backends_write_nothing(tmp_path, capsys, argv):
@@ -155,3 +159,27 @@ def test_refused_backends_write_nothing(tmp_path, capsys, argv):
     assert main(["compress", str(src), "-o", str(out)] + argv) == 1
     assert "error" in capsys.readouterr().err
     assert not out.exists()
+
+
+def test_default_backend_is_native_and_writes_reference_file(outputs):
+    """With no ``--backend`` the CLI writes what ``--backend native`` writes,
+    and the JAX package's CLI writes the same file."""
+    assert outputs["auto", True]["in.zst"] == outputs["native", True]["in.zst"]
+    assert outputs["auto", True]["in.zst"] == outputs["auto", False]["in.zst"]
+
+
+def test_cli_native_backend_round_trip(tmp_path):
+    """A native cycle crossing backends: compress on ``tpu`` (the plain
+    versions) and decompress with no ``--backend``, then compress with
+    ``--backend native`` and decompress on ``tpu``."""
+    data = DATA[:40000]
+    src = tmp_path / "in.bin"
+    src.write_bytes(data)
+    a, b, ra, rb = (str(tmp_path / n) for n in ("a.zst", "b.zst", "ra.bin", "rb.bin"))
+    assert main(["-q", "compress", str(src), "-o", a, "-s", "16K", "--backend", "tpu",
+                 "--device", "cpu"]) == 0
+    assert main(["-q", "decompress", a, "-o", ra]) == 0
+    assert main(["-q", "compress", str(src), "-o", b, "-s", "16K", "--backend", "native"]) == 0
+    assert main(["-q", "decompress", b, "-o", rb, "--backend", "tpu", "--device", "cpu"]) == 0
+    assert (tmp_path / "ra.bin").read_bytes() == data
+    assert (tmp_path / "rb.bin").read_bytes() == data

@@ -13,7 +13,8 @@ import pytest
 import torch
 
 import zeekstd_tpu_torch as zt
-from zeekstd_tpu_torch import decode_routes, ops, plan
+from zeekstd_tpu_torch import archive as archive_mod
+from zeekstd_tpu_torch import decode_routes, frame_codec, ops, plan
 from zeekstd_tpu_torch.cli import main as cli_main
 from zeekstd_tpu_torch.ops import byte_kernels as bk
 from zeekstd_tpu_torch.ops import decode_kernel as dk
@@ -24,7 +25,8 @@ from zeekstd_tpu_torch.ops import match_kernel as mk
 from zeekstd_tpu_torch.ops import reach_kernel as rch
 from zeekstd_tpu_torch.ops import ring_kernel as rk
 
-from . import byte_cases, fse_cases, fse_enc_cases, launch_cases, match_edges, ring_cases
+from . import (byte_cases, frame_cases, fse_cases, fse_enc_cases, launch_cases, match_edges,
+               ring_cases)
 from . import test_torch_exec as exec_cases
 
 pytestmark = pytest.mark.gpu
@@ -867,3 +869,49 @@ def test_cli_round_trip_on_card(card, tmp_path):
     assert cli_main(["-q", "d", str(arc), "-o", str(out), "-f", "--backend", "tpu",
                      "--from-frame", "2", "--to-frame", "4"]) == 0
     assert out.read_bytes() == data[2 * 65536 : 5 * 65536]
+
+
+# --- the per-frame device encoder and the native runtime on the card ------
+
+
+@pytest.mark.parametrize("checksum", [False, True])
+@pytest.mark.parametrize("name", list(frame_cases.CASES))
+def test_frame_codec_on_card_equals_cpu(card, name, checksum, monkeypatch):
+    """``frame_codec.compress_frame`` on the card writes the CPU run's frame
+    (the plain versions), with one FSE-kernel launch per frame that has a
+    sequence-bearing block; the card's decoder reads it back."""
+    data = frame_cases.CASES[name]
+    calls = []
+    plain = fk.fse_encode
+
+    def counted(*a, **k):
+        calls.append(1)
+        return plain(*a, **k)
+
+    monkeypatch.setattr(fk, "fse_encode", counted)
+    want = frame_codec.compress_frame(data, checksum=checksum, device="cpu")
+    monkeypatch.setattr(fk, "fse_encode", plain)
+    ops.reset_launches()
+    got = frame_codec.compress_frame(data, checksum=checksum, device=card)
+    assert ops.launches["fse"] == len(calls) <= 1
+    assert got == want
+    assert archive_mod.decompress_frame(got, device=card) == (data, len(got))
+
+
+def test_default_backend_is_native_on_card_machine(card):
+    """The native runtime builds on the card's host: ``auto`` picks it, and
+    its archive decodes on the card."""
+    from zeekstd_tpu_torch.native import loader
+
+    assert loader.available()
+    data = _data(256 << 10)
+    buf = io.BytesIO()
+    enc = zt.EncodeOptions().with_frame_size_policy(
+        zt.FrameSizePolicy.uncompressed(64 << 10)).into_encoder(buf)
+    assert enc.raw._use_native()
+    enc.write(data)
+    enc.finish()
+    blob = buf.getvalue()
+    st = zt.SeekTable.from_seekable(zt.BytesWrapper(blob))
+    assert zt.decompress_archive(blob[: st.size_comp], st, device=card) == data
+    assert zt.DecodeOptions(zt.BytesWrapper(blob)).into_decoder().read(-1) == data

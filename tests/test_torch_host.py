@@ -2,8 +2,9 @@
 
 - The port imports neither JAX nor ``zeekstd_tpu`` (checked in a
   subprocess where both are blocked, and in the sources).
-- The copied host modules are verbatim copies of the reference's.
-- The port's host library (XXH64, Huffman table construction, Huffman
+- The copied host modules and the native runtime's C++ source are
+  verbatim copies of the reference's.
+- The port's native runtime (XXH64, Huffman table construction, Huffman
   stream decoding) gives the reference library's results.
 - The plain-torch stages (bit packer, Huffman stream encoder, stream
   finalizer, assembly map) equal their JAX counterparts exactly.
@@ -79,11 +80,12 @@ def test_sources_import_neither_jax_nor_the_jax_package():
     "codec/bitstream", "codec/fse", "codec/huffman", "codec/literals",
     "codec/sequences", "codec/seq_encode", "codec/frame",
     "codec/compress", "codec/match", "codec/match_fast", "codec/block_compress",
-    "codec/decompress",
+    "codec/decompress", "native/frame", "native/zeekstd_native.cpp",
 ])
 def test_host_modules_are_verbatim_copies(mod):
-    with open(os.path.join(ROOT, "zeekstd_tpu", mod + ".py")) as a, \
-            open(os.path.join(PKG, mod + ".py")) as b:
+    name = mod if mod.endswith(".cpp") else mod + ".py"
+    with open(os.path.join(ROOT, "zeekstd_tpu", name), "rb") as a, \
+            open(os.path.join(PKG, name), "rb") as b:
         assert a.read() == b.read()
 
 

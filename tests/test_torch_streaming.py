@@ -15,7 +15,8 @@
 - Three faults of ``zeekstd_tpu.encode`` that the port does not copy: the
   compressed policy's frame cap, its re-probing, and input dropped or
   reordered when a prefix arrives mid-stream.
-- ``native`` is refused; ``tpu`` with no card raises unless asked for the CPU.
+- ``native`` is accepted and writes the JAX package's archive; ``tpu`` with
+  no card raises unless asked for the CPU.
 """
 
 import io
@@ -467,16 +468,21 @@ def test_prefix_mid_stream_keeps_every_byte(order):
 
 
 def test_native_backend_is_refused():
-    with pytest.raises(ValueError, match="native"):
-        zt.EncodeOptions().with_backend("native")
-    with pytest.raises(ValueError, match="native"):
-        zt.DecodeOptions(zt.BytesWrapper(b"")).with_backend("native")
-    opts = zt.EncodeOptions()
-    opts.backend = "native"
-    with pytest.raises(ValueError, match="native"):
-        zt.RawEncoder(opts)
+    """The backend names: ``native`` is accepted by both builders and
+    round-trips through the Encoder and Decoder (its archive is the JAX
+    package's), ``gpu`` is still an unknown backend, and ``auto`` is the
+    default of both builders."""
+    cfg = dict(policy=("uncompressed", 16384), level=1, checksum=True)
+    blob = _encode(zt, cfg, backend="native")
+    assert blob == _encode(zr, cfg, backend="native")
+    dec = zt.DecodeOptions(zt.BytesWrapper(blob)).with_backend("native").into_decoder()
+    assert dec._backend == "native"
+    assert dec.read(-1) == TEXT
     with pytest.raises(ValueError, match="unknown backend"):
         zt.EncodeOptions().with_backend("gpu")
+    with pytest.raises(ValueError, match="unknown backend"):
+        zt.DecodeOptions(zt.BytesWrapper(b"")).with_backend("gpu")
+    assert zt.EncodeOptions().backend == "auto"
     assert zt.DecodeOptions(zt.BytesWrapper(b"")).backend == "auto"
 
 
@@ -487,5 +493,5 @@ def test_tpu_backend_without_card_raises(survey):
         zt.EncodeOptions().with_backend("tpu").into_raw_encoder()
     with pytest.raises(RuntimeError, match="device='cpu'"):
         zt.DecodeOptions(zt.BytesWrapper(survey[4096])).with_backend("tpu").into_decoder()
-    dec = zt.DecodeOptions(zt.BytesWrapper(survey[4096])).into_decoder()  # auto: python
+    dec = zt.DecodeOptions(zt.BytesWrapper(survey[4096])).into_decoder()  # auto: native
     assert dec.read(-1) == INPUT

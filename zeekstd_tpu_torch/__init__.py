@@ -12,7 +12,10 @@ package imports neither JAX nor ``zeekstd_tpu``.
 
 The streaming ``Encoder``/``Decoder`` (``encode``, ``decode``) and the
 ``zeekstd`` command line (``python -m zeekstd_tpu_torch``) reach the card
-through their ``tpu`` backend; ``python`` runs the host codec.
+through their ``tpu`` backend; ``native`` (the default, ``auto``, when
+it builds) runs the host C++ runtime (``native/``) and ``python`` the
+host codec. ``frame_codec.compress_frame`` is the per-frame device
+encoder.
 
 Entry points run on the CUDA card unless called with ``device="cpu"``
 (``with_device("cpu")``, ``--device cpu``), which runs each kernel's

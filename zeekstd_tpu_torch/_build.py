@@ -2,16 +2,20 @@
 
 Two libraries, both with a plain C interface loaded through ``ctypes``:
 
-- ``native/host.cpp`` -> the host library (g++): XXH64 and the Huffman
-  table construction and stream decoding.
+- ``native/zeekstd_native.cpp`` -> the native runtime (g++, with the JAX
+  package's flags, ``-march=native`` among them): the host frame codec,
+  the threaded stream helpers, XXH64, and the Huffman table construction
+  and stream decoding of the archive pipeline.
 - ``csrc/*.cu`` -> the kernel library (nvcc, ``sm_90a``): the CUDA
   kernels of the archive pipeline. It is built only when a wrapper is
   about to launch a kernel, so importing the package needs no ``nvcc``.
 
 Each library is built once into ``build/`` beside the package (listed in
-``.gitignore``) under a name keyed by the hash of its sources and flags,
-and moved into place with an atomic rename, so concurrent processes
-never load a half-written file.
+``.gitignore``) under a name keyed by the hash of its sources and flags
+(and, for ``-march=native``, of the host CPU's model and features, so a
+build directory copied to another machine is never loaded there), and
+moved into place with an atomic rename, so concurrent processes never
+load a half-written file.
 """
 
 from __future__ import annotations
@@ -19,6 +23,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import platform
 import shutil
 import subprocess
 import threading
@@ -44,8 +49,20 @@ def cuda_sources() -> list[str]:
     )
 
 
+def _host_cpu() -> bytes:
+    """The CPU's model names and feature flags, as /proc/cpuinfo lists them."""
+    try:
+        with open("/proc/cpuinfo", "rb") as fh:
+            lines = fh.read().splitlines()
+    except OSError:
+        return platform.machine().encode()
+    return b"\n".join(sorted({ln for ln in lines if ln.startswith((b"model name", b"flags"))}))
+
+
 def _digest(sources, cmd) -> str:
     h = hashlib.sha256(" ".join(cmd).encode())
+    if "-march=native" in cmd:
+        h.update(_host_cpu())
     for s in sources:
         with open(s, "rb") as fh:
             h.update(fh.read())

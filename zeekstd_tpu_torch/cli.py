@@ -4,8 +4,8 @@ The command line of ``zeekstd_tpu.cli`` on the port:
 ``python -m zeekstd_tpu_torch compress --backend tpu ...`` encodes and
 decodes on the CUDA card, ``--device cpu`` runs the kernels' plain
 versions instead. With no card, ``--backend tpu`` exits with an error
-before it opens a file. ``auto`` means ``python`` (the port has no
-native runtime) and ``--backend native`` is refused.
+before it opens a file. The default backend, ``auto``, is the native
+runtime whenever it builds, as in the JAX package.
 
 Mirrors the reference CLI's commands, flags, and behaviors
 (reference: cli/src/):
@@ -36,7 +36,7 @@ import time
 from .codec.compress import CCtx
 from .codec.decompress import DCtx
 from .decode import DecodeOptions
-from .device import NO_NATIVE, resolve_device
+from .device import resolve_device
 from .encode import EncodeOptions, Encoder, FrameSizePolicy
 from .errors import ZeekstdError
 from .seek_table import Format, SeekTable
@@ -153,8 +153,8 @@ def build_parser() -> argparse.ArgumentParser:
         sp.add_argument(
             "--backend", choices=["auto", "python", "native", "tpu"],
             default="auto",
-            help="execution backend (default: python; tpu = batched device "
-            "archive pipeline on the CUDA card; native is not available)",
+            help="execution backend (default: native runtime when "
+            "available; tpu = batched device archive pipeline on the CUDA card)",
         )
         sp.add_argument(
             "--device", choices=["cuda", "cpu"], default="cuda",
@@ -276,10 +276,8 @@ def _open_output(args, derive, is_stdin: bool):
 
 
 def _check_backend(args) -> None:
-    """Refuse, before any file is opened, a backend this package cannot
-    run: ``native``, or ``tpu`` on a device that is not there."""
-    if args.backend == "native":
-        raise CliError(NO_NATIVE)
+    """Refuse, before any file is opened, the ``tpu`` backend on a device
+    that is not there."""
     if args.backend == "tpu":
         try:
             resolve_device(args.device)

@@ -14,6 +14,12 @@
 // counts them. Word bits // 32 is always written (the finalizer reads the
 // sentinel byte there), word 0 also for a job without sequences.
 //
+// Two layouts of a sequence's lengths: packed (the archive pipeline's
+// 32 KiB blocks), lm = ll << 16 | ml; and wide (the per-frame encoder's
+// 128 KiB blocks, where a literal run or a match reaches 2^17), the full
+// ll in lm and the full ml in a row of its own. The layout is a template
+// argument, so the packed instance is the code it was.
+//
 // What bounds it on this card: latency. Each state depends on the one
 // before it (a table load indexed by the state and its symbol), so a job
 // is a serial chain; the bytes are few (about 4 us at the 10 MiB level-1
@@ -100,8 +106,9 @@ struct Code {
   int llc, mlc, ofc, lle, llb, mle, mlb, ofe;
 };
 
-__device__ __forceinline__ Code code_of(const int* c, int lm, int ofv) {
-  const int ll = (int)((unsigned)lm >> 16), ml = lm & 0xFFFF;
+template <bool WIDE>
+__device__ __forceinline__ Code code_of(const int* c, int lm, int mlv, int ofv) {
+  const int ll = WIDE ? lm : (int)((unsigned)lm >> 16), ml = WIDE ? mlv : lm & 0xFFFF;
   const int llc = ll < 64 ? c[C_LLLUT + ll] : 19 + zk_highbit(ll);
   const int mb = ml - 3;
   const int mlc = mb < 128 ? c[C_MLLUT + max(mb, 0)] : 36 + zk_highbit(mb);
@@ -144,10 +151,10 @@ __device__ __forceinline__ void put(uint32_t* buf, uint32_t v, int pos) {
   if (sh != 0 && (v >> (32 - sh)) != 0) atomicOr(&buf[w + 1], v >> (32 - sh));
 }
 
-template <int K>
+template <int K, bool WIDE>
 __global__ void __launch_bounds__(THREADS, 3)
 fse_kernel(const int* __restrict__ consts, const int* __restrict__ meta,
-           const int* __restrict__ lm, const int* __restrict__ ofv,
+           const int* __restrict__ lm, const int* __restrict__ mlw, const int* __restrict__ ofv,
            const int* __restrict__ tables, int ntables, int SBd, int WBo,
            uint32_t* __restrict__ words, int* __restrict__ bits) {
   using S = Smem<K>;
@@ -176,11 +183,13 @@ fse_kernel(const int* __restrict__ consts, const int* __restrict__ meta,
   const int logs = m[J_LOGS];
   const int* lmr = lm + (long long)m[J_REC] * SBd;
   const int* ofr = ofv + (long long)m[J_REC] * SBd;
-  int nlm[SPT], nof[SPT];  // the next chunk's rows, loaded a chunk ahead
+  const int* mlr = WIDE ? mlw + (long long)m[J_REC] * SBd : nullptr;
+  int nlm[SPT], nml[SPT], nof[SPT];  // the next chunk's rows, loaded a chunk ahead
 #pragma unroll
   for (int q = 0; q < SPT; ++q) {
     const int p = q * THREADS + tid;
     nlm[q] = p < K && p < nseq ? lmr[nseq - 1 - p] : 0;
+    nml[q] = WIDE && p < K && p < nseq ? mlr[nseq - 1 - p] : 0;
     nof[q] = p < K && p < nseq ? ofr[nseq - 1 - p] : 0;
   }
   __syncthreads();  // staged
@@ -195,12 +204,13 @@ fse_kernel(const int* __restrict__ consts, const int* __restrict__ meta,
 #pragma unroll
     for (int q = 0; q < SPT; ++q) {
       const int p = q * THREADS + tid;
-      const int lmv = nlm[q], ofvv = nof[q];
+      const int lmv = nlm[q], mlv = nml[q], ofvv = nof[q];
       const int pn = p + K;  // the same slot of the next chunk
       nlm[q] = p < K && top - pn >= 0 ? lmr[top - pn] : 0;
+      nml[q] = WIDE && p < K && top - pn >= 0 ? mlr[top - pn] : 0;
       nof[q] = p < K && top - pn >= 0 ? ofr[top - pn] : 0;
       if (p < cnt) {
-        const Code cd = code_of(s.c, lmv, ofvv);
+        const Code cd = code_of<WIDE>(s.c, lmv, mlv, ofvv);
         const int sym[3] = {cd.ofc, cd.mlc, cd.llc};
 #pragma unroll
         for (int k = 0; k < 3; ++k) {
@@ -327,18 +337,19 @@ fse_kernel(const int* __restrict__ consts, const int* __restrict__ meta,
   }
 }
 
-template <int K>
-int launch(const int* consts, const int* meta, const int* lm, const int* ofv,
+template <int K, bool WIDE>
+int launch(const int* consts, const int* meta, const int* lm, const int* mlw, const int* ofv,
            const int* tables, int ntables, int njobs, int SBd, int WBo, uint32_t* words,
            int* bits, cudaStream_t stream) {
   constexpr int bytes = (int)sizeof(Smem<K>) + ALIGN;
   static bool sized = false;  // more than 48 KiB must be asked for, once
   if (!sized) {
-    cudaFuncSetAttribute(fse_kernel<K>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    cudaFuncSetAttribute(fse_kernel<K, WIDE>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                         bytes);
     sized = true;
   }
-  fse_kernel<K><<<njobs, THREADS, bytes, stream>>>(consts, meta, lm, ofv, tables, ntables, SBd,
-                                                   WBo, words, bits);
+  fse_kernel<K, WIDE><<<njobs, THREADS, bytes, stream>>>(consts, meta, lm, mlw, ofv, tables,
+                                                         ntables, SBd, WBo, words, bits);
   return zk_last_error();
 }
 
@@ -351,14 +362,32 @@ extern "C" int zk_fse_launch(const void* consts, const void* meta,
                              const void* tables, int ntables, int njobs,
                              int SBd, int WBo, int chunk, void* words, void* bits,
                              void* stream) {
-  decltype(&launch<512>) run;
+  decltype(&launch<512, false>) run;
   switch (chunk) {
-    case 512: run = launch<512>; break;
-    case 32: run = launch<32>; break;
+    case 512: run = launch<512, false>; break;
+    case 32: run = launch<32, false>; break;
     default: return (int)cudaErrorInvalidValue;
   }
   if (njobs <= 0) return zk_last_error();
-  return run((const int*)consts, (const int*)meta, (const int*)lm, (const int*)ofv,
+  return run((const int*)consts, (const int*)meta, (const int*)lm, nullptr, (const int*)ofv,
              (const int*)tables, ntables, njobs, SBd, WBo, (uint32_t*)words, (int*)bits,
              (cudaStream_t)stream);
+}
+
+// The wide layout: ll and ml rows of their own (the per-frame encoder).
+extern "C" int zk_fse_wide_launch(const void* consts, const void* meta,
+                                  const void* ll, const void* ml, const void* ofv,
+                                  const void* tables, int ntables, int njobs,
+                                  int SBd, int WBo, int chunk, void* words, void* bits,
+                                  void* stream) {
+  decltype(&launch<512, true>) run;
+  switch (chunk) {
+    case 512: run = launch<512, true>; break;
+    case 32: run = launch<32, true>; break;
+    default: return (int)cudaErrorInvalidValue;
+  }
+  if (njobs <= 0) return zk_last_error();
+  return run((const int*)consts, (const int*)meta, (const int*)ll, (const int*)ml,
+             (const int*)ofv, (const int*)tables, ntables, njobs, SBd, WBo, (uint32_t*)words,
+             (int*)bits, (cudaStream_t)stream);
 }

@@ -3,8 +3,8 @@
 The streaming Decoder of ``zeekstd_tpu.decode`` with its ``tpu`` backend
 on the CUDA card: each frame goes through ``archive.decompress_frame``
 (one device decode per frame), on the card unless ``with_device("cpu")``
-asks for the kernels' plain versions. ``auto`` means ``python`` (the
-port has no native runtime) and ``native`` is refused.
+asks for the kernels' plain versions. ``auto`` means ``native`` when the
+native runtime builds, and ``python`` otherwise, as in the JAX package.
 
 Mirrors the reference's decode layer (reference: lib/src/decode.rs):
 ``DecodeOptions`` builder (decode.rs:12-114) and ``Decoder``
@@ -31,8 +31,10 @@ import os
 
 from . import archive
 from .codec.decompress import DCtx, StreamingFrameDecoder
-from .device import NO_NATIVE, resolve_device
+from .device import resolve_device
 from .errors import OffsetOutOfRangeError, ZeekstdError, corruption_detected
+from .native import loader
+from .native.frame import native_decompress_frame
 from .seek_table import SeekTable
 from .seekable import Seekable, Start, as_seekable
 
@@ -113,13 +115,11 @@ class DecodeOptions:
         self.device = None
 
     def with_backend(self, backend: str) -> "DecodeOptions":
-        """"auto" (``python``: the port has no native runtime), "python",
-        or "tpu" - frames decode through the device pipeline on the CUDA
-        card, including prefix/patch mode. "native" is refused."""
+        """"auto" (native when available), "python", "native", or "tpu" -
+        frames decode through the device pipeline on the CUDA card,
+        including prefix/patch mode."""
         if backend not in ("auto", "python", "native", "tpu"):
             raise ValueError(f"unknown backend {backend!r}")
-        if backend == "native":
-            raise ValueError(NO_NATIVE)
         self.backend = backend
         return self
 
@@ -192,9 +192,9 @@ class Decoder:
         self.offset = offset
         self.offset_limit = limit
         self._read_compressed = 0
-        if options.backend == "native":
-            raise ValueError(NO_NATIVE)
-        self._backend = "python" if options.backend == "auto" else options.backend
+        self._backend = options.backend
+        if self._backend == "auto":
+            self._backend = "native" if loader.available() else "python"
         # A missing card raises here, not in the middle of a read.
         self._device = resolve_device(options.device) if self._backend == "tpu" else None
         # In-memory decoded frame cache: (frame_index, bytes) or None.
@@ -230,6 +230,10 @@ class Decoder:
         if self._backend == "tpu":
             out, fend = archive.decompress_frame(
                 buf, prefix=self._prefix or b"", device=self._device
+            )
+        elif self._backend == "native":
+            out, fend = native_decompress_frame(
+                buf, self._st.frame_size_decomp(index) + 64, prefix=self._prefix or b""
             )
         else:
             if self._prefix is not None:

@@ -16,10 +16,6 @@ import numpy as np
 import torch
 
 
-# Why the streaming layer and the CLI refuse the ``native`` backend.
-NO_NATIVE = "the native backend is not available: this package has no native runtime"
-
-
 def resolve_device(device=None) -> torch.device:
     """``None`` means the CUDA card; ``"cpu"`` (or a CPU device) runs the
     plain PyTorch versions of the kernels."""

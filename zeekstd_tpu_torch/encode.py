@@ -26,8 +26,10 @@ Two calling conventions are offered on the raw layer:
 The ``tpu`` backend feeds buffered input to ``archive.compress_archive``
 on the CUDA card, several frames per call, and logs the frames into the
 same ``SeekTable``; ``with_device("cpu")`` runs the kernels' plain
-versions instead. The port has no native runtime: ``auto`` means
-``python`` and ``native`` is refused.
+versions instead. ``auto`` picks the native runtime (``native/``) where
+the JAX package does: whenever it builds, except on the compressed
+policy with a prefix or an explicit window, which stay on the Python
+frame encoder.
 
 Three faults of ``zeekstd_tpu.encode`` are not copied: a compressed-policy
 cut stops at ``SEEKABLE_MAX_FRAME_SIZE`` and carries the rest into the
@@ -48,8 +50,10 @@ from .constants import (
     DEFAULT_FRAME_SIZE,
     SEEKABLE_MAX_FRAME_SIZE,
 )
-from .device import NO_NATIVE, resolve_device
+from .device import resolve_device
 from .errors import NumberConversionError
+from .native import loader
+from .native.frame import NativeFrameEncoder, NativeStreamFrameEncoder
 from .seek_table import Format, SeekTable
 
 
@@ -110,8 +114,8 @@ class EncodeOptions:
     Checksums default OFF in the library (reference: lib/src/encode.rs:146)
     and are enabled explicitly by the CLI (reference: cli/src/compress.rs:41).
 
-    ``backend``: "auto" (``python``: the port has no native runtime),
-    "python", or "tpu"; ``device``: the ``tpu`` backend's device.
+    ``backend``: "auto" (the native runtime when it builds), "python",
+    "native", or "tpu"; ``device``: the ``tpu`` backend's device.
     """
 
     def __init__(self, cctx: CCtx | None = None):
@@ -123,13 +127,11 @@ class EncodeOptions:
         self.device = None
 
     def with_backend(self, backend: str) -> "EncodeOptions":
-        """"auto" (``python``), "python", or "tpu" - the batched device
-        archive pipeline on the CUDA card (prefix/patch mode supported;
-        the compressed policy by two passes). "native" is refused."""
+        """"auto" (native when available), "python", "native", or "tpu" -
+        the batched device archive pipeline on the CUDA card (prefix/patch
+        mode supported; the compressed policy by two passes)."""
         if backend not in ("auto", "python", "native", "tpu"):
             raise ValueError(f"unknown backend {backend!r}")
-        if backend == "native":
-            raise ValueError(NO_NATIVE)
         self.backend = backend
         return self
 
@@ -174,8 +176,6 @@ class RawEncoder:
 
     def __init__(self, options: EncodeOptions | None = None):
         self.options = options if options is not None else EncodeOptions()
-        if self.options.backend == "native":
-            raise ValueError(NO_NATIVE)
         # A missing card raises here, not in the middle of a write.
         self._device = (resolve_device(self.options.device)
                         if self.options.backend == "tpu" else None)
@@ -201,9 +201,43 @@ class RawEncoder:
             return min(log, 27)
         return 24  # compressed policy: uncompressed size unknown upfront
 
+    def _use_native(self) -> bool:
+        if self.options.backend == "python":
+            return False
+        pol = self.options.frame_size_policy
+        if pol.kind == "compressed":
+            # Served by the native streaming context (one compressed
+            # block per step) unless a prefix or explicit window is in
+            # play — those stay on the Python frame encoder.
+            if (self._prefix or b"") or self.cctx.window_log > 0:
+                return False
+            return loader.available()
+        if self.options.backend == "native":
+            return True
+        # auto: the native runtime serves every level; the Python path
+        # stays available via backend="python".
+        return loader.available()
+
     def _begin_frame(self) -> None:
         prefix = self._prefix if self._prefix is not None else b""
         pol = self.options.frame_size_policy
+        if self._use_native():
+            if pol.kind == "compressed":
+                # Input-step granularity scales with the threshold so the
+                # cut lands within ~a quarter threshold of it (the Python
+                # frame encoder uses the same heuristic).
+                self._frame = NativeStreamFrameEncoder(
+                    checksum=self.cctx.checksum, level=self.cctx.level,
+                    block_size=max(pol.size // 4, 1024),
+                )
+            else:
+                self._frame = NativeFrameEncoder(
+                    checksum=self.cctx.checksum, prefix=prefix,
+                    level=self.cctx.level, ldm=self.cctx.ldm,
+                )
+            self._frame_c_size = 0
+            self._frame_d_size = 0
+            return
         # Compressed-size policy needs fine-grained block flushes so the
         # cut threshold is observable as the frame grows.
         block_size = max(pol.size // 4, 1024) if pol.kind == "compressed" else None
@@ -224,7 +258,10 @@ class RawEncoder:
         pol = self.options.frame_size_policy
         if pol.kind == "uncompressed":
             return min(pol.size, SEEKABLE_MAX_FRAME_SIZE) - self._frame_d_size
-        return SEEKABLE_MAX_FRAME_SIZE - self._frame_d_size
+        # The native streaming encoder declares a fixed 16 MiB window;
+        # the frame must cut before input exceeds it.
+        cap = getattr(self._frame, "d_cap", SEEKABLE_MAX_FRAME_SIZE)
+        return min(cap, SEEKABLE_MAX_FRAME_SIZE) - self._frame_d_size
 
     def _is_frame_complete(self) -> bool:
         """(reference: lib/src/encode.rs:537-544)"""

@@ -40,3 +40,20 @@ def pack_bits(values, nbits, word_bound: int):
     words.scatter_add_(-1, w.clamp(0, word_bound - 1), lo)
     words.scatter_add_(-1, (w + 1).clamp(0, word_bound - 1), hi)
     return to_i32(words & _M32), total_bits.to(torch.int32)
+
+
+def words_to_stream(words, total_bits) -> bytes:
+    """Host-side: finalize a backward-readable stream — append the sentinel
+    bit and byte-align (mirrors BitWriter.finish())."""
+    import numpy as np
+
+    words = np.asarray(words, dtype="<u4")
+    total_bits = int(total_bits)
+    raw = words.tobytes()
+    nbytes = (total_bits + 7) // 8
+    buf = bytearray(raw[: nbytes + 1])
+    while len(buf) < nbytes + 1:
+        buf.append(0)
+    # Sentinel: one 1-bit at position total_bits.
+    buf[total_bits // 8] |= 1 << (total_bits % 8)
+    return bytes(buf[: total_bits // 8 + 1])

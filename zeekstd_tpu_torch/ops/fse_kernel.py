@@ -11,6 +11,10 @@ sequence's ll/ml/of extras; per sequence i = n-2..0 the fused of/ml/ll
 state bits then the ll/ml/of extras; tail = final ml/of/ll states at
 their accuracy logs. ``ops/assemble.finalize_streams`` adds the sentinel.
 
+The wide layout (``ml`` given) carries lengths that do not fit 16 bits,
+as the per-frame encoder's 128 KiB blocks need: ``lm`` holds the full ll
+and ``ml`` the full match length, row for row.
+
 Encode-table rows (one int32[1024] row per table, deduped across
 Repeat_Mode blocks): [0:64] delta_nb_bits, [64:128] delta_find_state,
 [128:640] state_table. A row index outside the pool reads the nearest
@@ -96,14 +100,19 @@ def _highbit(x: int) -> int:
     return max(x, 1).bit_length() - 1
 
 
-def _encode_job(c, lm, ofv, tll, tof, tml, logs, words):
+def _encode_job(c, lm, ofv, tll, tof, tml, logs, words, mlw=None):
     """One job over Python ints; writes ``words`` (a list; words past its
-    length are dropped) and returns the stream's bit count."""
+    length are dropped) and returns the stream's bit count. With ``mlw``
+    (the wide layout) ``lm`` holds the full ll and ``mlw`` the ml."""
     nseq = len(lm)
     cap = len(words)
 
     def seq_at(j):
-        ll, ml, ov = (lm[j] >> 16) & 0xFFFF, lm[j] & 0xFFFF, ofv[j]
+        if mlw is None:
+            ll, ml = (lm[j] >> 16) & 0xFFFF, lm[j] & 0xFFFF
+        else:
+            ll, ml = lm[j], mlw[j]
+        ov = ofv[j]
         llc = c[C_LLLUT + ll] if ll < 64 else 19 + _highbit(ll)
         mlb = ml - 3
         mlc = c[C_MLLUT + mlb] if mlb < 128 else 36 + _highbit(mlb)
@@ -163,13 +172,14 @@ def _encode_job(c, lm, ofv, tll, tof, tml, logs, words):
     return w * 32 + n
 
 
-def fse_plain(consts, meta, lm, ofv, tables, SBd: int, WBo: int):
+def fse_plain(consts, meta, lm, ofv, tables, SBd: int, WBo: int, ml=None):
     """Plain version over Python ints, job by job."""
     njobs = meta.numel() // JMETA_COLS
     c = consts.reshape(-1).tolist()
     mrows = meta.reshape(njobs, JMETA_COLS).tolist()
     lm2 = lm.reshape(-1, SBd)
     ofv2 = ofv.reshape(-1, SBd)
+    ml2 = None if ml is None else ml.reshape(-1, SBd)
     tab = tables.reshape(-1, 1024)
     words = np.zeros((njobs, WBo), np.uint32)
     bits = np.zeros(njobs, np.int32)
@@ -190,6 +200,7 @@ def fse_plain(consts, meta, lm, ofv, tables, SBd: int, WBo: int):
         bits[j] = _encode_job(
             c, lm2[rec, :nseq].tolist(), ofv2[rec, :nseq].tolist(),
             row(m[J_TLL]), row(m[J_TOF]), row(m[J_TML]), m[J_LOGS], wl,
+            None if ml2 is None else ml2[rec, :nseq].tolist(),
         )
         words[j] = wl
     dev = lm.device
@@ -197,9 +208,10 @@ def fse_plain(consts, meta, lm, ofv, tables, SBd: int, WBo: int):
             torch.from_numpy(bits).to(dev))
 
 
-def fse_encode(consts, meta, lm, ofv, tables, *, SBd: int, WBo: int):
+def fse_encode(consts, meta, lm, ofv, tables, *, SBd: int, WBo: int, ml=None):
     """Encode every job. consts int32[512], meta int32[NRECJ, JMETA_COLS],
-    lm/ofv int32[NRECP, SBd] (match-kernel rows), tables int32[Tp, 1024].
+    lm/ofv int32[NRECP, SBd] (match-kernel rows), tables int32[Tp, 1024];
+    ``ml`` int32[NRECP, SBd] selects the wide layout (``lm`` = ll).
     Returns (words int32[NRECJ, WBo] - the uint32 stream words, exact up
     to and including word ``bits // 32`` - and bits int32[NRECJ]).
 
@@ -208,9 +220,9 @@ def fse_encode(consts, meta, lm, ofv, tables, *, SBd: int, WBo: int):
     ``assemble.finalize_streams`` zeroes each image past its sentinel
     byte, so nothing reads the words beyond."""
     if lm.device.type == "cpu":
-        return fse_plain(consts, meta, lm, ofv, tables, SBd, WBo)
+        return fse_plain(consts, meta, lm, ofv, tables, SBd, WBo, ml)
     for name, t in (("consts", consts), ("meta", meta), ("lm", lm),
-                    ("ofv", ofv), ("tables", tables)):
+                    ("ofv", ofv), ("tables", tables)) + ((("ml", ml),) if ml is not None else ()):
         check_cuda(name, t)
     if CHUNK not in CHUNKS:
         raise ValueError(f"CHUNK must be one of {CHUNKS}, got {CHUNK}")
@@ -220,8 +232,13 @@ def fse_encode(consts, meta, lm, ofv, tables, *, SBd: int, WBo: int):
     dev = lm.device
     words = torch.empty((njobs, WBo), dtype=torch.int32, device=dev)
     bits = torch.empty(njobs, dtype=torch.int32, device=dev)
-    fn = kernel_fn("zk_fse_launch", [P, P, P, P, P, I, I, I, I, I, P, P, P])
-    rc = fn(ptr(consts), ptr(meta), ptr(lm), ptr(ofv), ptr(tables),
+    if ml is None:
+        fn = kernel_fn("zk_fse_launch", [P, P, P, P, P, I, I, I, I, I, P, P, P])
+        rows = (ptr(lm), ptr(ofv))
+    else:
+        fn = kernel_fn("zk_fse_wide_launch", [P, P, P, P, P, P, I, I, I, I, I, P, P, P])
+        rows = (ptr(lm), ptr(ml), ptr(ofv))
+    rc = fn(ptr(consts), ptr(meta), *rows, ptr(tables),
             tables.numel() // 1024, njobs, SBd, WBo, CHUNK, ptr(words), ptr(bits),
             stream())
     launches["fse"] += 1
