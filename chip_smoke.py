@@ -128,6 +128,30 @@ Phases (any failure raises; nothing is caught):
                card and the host codec; [timing] frame_codec: MiB/s median
                of 5 with its spread and the fenced split (parse, host
                decisions, entropy, assembly), and the wide FSE launch's time.
+  7a. mesh   - the mesh pipeline (zeekstd_tpu_torch/parallel/) in one
+               process on an NCCL group of world size 1 (init_multihost,
+               make_mesh() on the card): the 10 MiB text at levels 1 and 3 in
+               1 MiB frames, checksums off and on: parallel_compress equal to
+               compress_archive with equal seek tables; parallel_decompress
+               exact with one ring (L1) or wide (L3) launch, and under
+               ZEEKSTD_TPU_MESH_EXEC=doubling with the FSE-decode and both
+               reachability kernels; parallel_random_access over ranges across
+               frame edges; route_queries owners all 0; multihost_compress rows
+               stitched by the write plan equal to the blob; [timing] mesh:
+               MiB/s median and spread of 5 in turns of the mesh encode and
+               decode, compress_archive and decompress_archive (host bytes in
+               and out, checksums off), and the fenced phase split (mesh.stage,
+               mesh.gather, mesh.decode_gather beside enc.* and dec.*).
+  7b. scale  - 64 MiB of the text at level 1 in 2 MiB frames through 7a's
+               mesh: equal to compress_archive, round trip exact, each timed
+               once, and the fenced split of a second decode.
+  7c. processes - two processes of this script (--mesh-child) on the card in
+               a gloo group: each compresses only its frames of the 10 MiB
+               text (level 1, multihost_compress) and writes them into one
+               file at the write plan's offsets; the stitched archive and both
+               seek tables must equal 7a's, and both processes must decode the
+               whole text and the same ranges. A child's failure or a
+               10-minute timeout fails the phase.
   table      - each kernel's row: the wrapper's CUDA-event time at its
                path's shapes; for the byte histogram, the table lookup and
                the two reachability kernels the device time alone instead
@@ -136,7 +160,8 @@ Phases (any failure raises; nothing is caught):
                that exceed 2.4 times the L2) and warm ([timing] reach); the byte kernels also cold at 160 MiB (16 copies of
                the text) and their library calls on rotated copies
                ([timing] bytes). Launches add up phases 3, 3b, 3c (each
-               route), the byte kernels' run and phases 5, 6a and 6b.
+               route), the byte kernels' run and phases 5, 6a, 6b, 7a-7b
+               and 7c (both processes).
 
 Prints the card's name and power limit, one JSON line with the kernel
 table, and as its last line {"ok": true, "device": {...}}. With --out
@@ -149,6 +174,7 @@ import io
 import json
 import os
 import random
+import socket
 import subprocess
 import sys
 import time
@@ -742,17 +768,19 @@ def patch_pair(data: bytes, seed: int = 5):
 
 class exec_route:
     """``with exec_route("serial"):`` decodes on that route
-    (ZEEKSTD_TPU_EXEC), restoring the default afterwards."""
+    (ZEEKSTD_TPU_EXEC, or the variable ``var``), restoring the default
+    afterwards."""
 
-    def __init__(self, mode):
+    def __init__(self, mode, var="ZEEKSTD_TPU_EXEC"):
         self.mode = mode
+        self.var = var
 
     def __enter__(self):
-        os.environ["ZEEKSTD_TPU_EXEC"] = self.mode
+        os.environ[self.var] = self.mode
         return self
 
     def __exit__(self, *exc):
-        os.environ.pop("ZEEKSTD_TPU_EXEC", None)
+        os.environ.pop(self.var, None)
         return False
 
 
@@ -1295,13 +1323,301 @@ def check_frame_codec(zt, ops, data, small, dev, smi, mods):
     return res, counts, err
 
 
+# Phase 7's ranges cross frame edges of the 1 MiB frames.
+MESH_RANGES = [(MIB - 100, MIB + 100), (3 * MIB - 5, 5 * MIB + 5), (0, 10), (9 * MIB + 1, 10 * MIB)]
+
+
+def free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def add_counts(total, counts):
+    for k, v in counts.items():
+        total[k] += v
+
+
+def check_mesh(zt, ops, data, dev, smi):
+    """Phases 7a and 7b: the mesh pipeline (``parallel/``) in one process
+    on an NCCL group of world size 1. Returns (results, the launches of
+    the counted runs, summed, phase 7a's level-1 archive without
+    checksums)."""
+    import torch.distributed as dist
+    from zeekstd_tpu_torch import parallel
+
+    res, total, blobs = {}, {k: 0 for k in ops.launches}, {}
+    n = len(data)
+    torch.cuda.set_device(dev)
+    parallel.init_multihost(f"127.0.0.1:{free_port()}", 1, 0, backend="nccl")
+    try:
+        mesh = parallel.make_mesh()
+        assert dist.get_backend(mesh.group) == "nccl" and mesh.size == 1
+        assert mesh.collective_device() == dev
+        for level in (1, 3):
+            route, other = ("ring_decode", "wide_decode")[:: 1 if level == 1 else -1]
+            for checksum in (False, True):
+                (blob, st), c = counted(ops, lambda: parallel.parallel_compress(
+                    data, mesh, frame_size=MIB, level=level, checksum=checksum))
+                add_counts(total, c)
+                need(c, ("match", "fse") if level == 1 else ("reach_tables", "reach_mark", "fse"),
+                     f"mesh encode, level {level}")
+                single, single_st = zt.compress_archive(data, frame_size=MIB, level=level,
+                                                        checksum=checksum, device=dev)
+                assert blob == single, f"level {level}: the mesh archive differs"
+                assert st.to_bytes() == single_st.to_bytes(), f"level {level}: seek tables differ"
+                out, c = counted(ops, lambda: parallel.parallel_decompress(blob, st, mesh))
+                add_counts(total, c)
+                assert out == data, f"level {level}: the mesh decode differs"
+                if c[route] != 1 or c[other]:
+                    raise AssertionError(f"mesh decode, level {level}: not one {route} launch "
+                                         f"({c})")
+                with exec_route("doubling", "ZEEKSTD_TPU_MESH_EXEC"):
+                    out, cd = counted(ops, lambda: parallel.parallel_decompress(blob, st, mesh))
+                add_counts(total, cd)
+                assert out == data, f"level {level}: the mesh doubling decode differs"
+                need(cd, ("fse_decode", "reach_tables", "reach_mark"), "mesh doubling decode")
+                if cd["ring_decode"] or cd["wide_decode"]:
+                    raise AssertionError(f"the mesh doubling route launched a fused decoder ({cd})")
+                blobs[level, checksum] = (blob, st)
+                log(f"[mesh] level {level}, checksums {'on' if checksum else 'off'}: archive and "
+                    f"seek table equal compress_archive's; fused decode exact with one {route} "
+                    f"launch, doubling decode exact (launches {c} / {cd})")
+            got, c = counted(ops, lambda: parallel.parallel_random_access(blob, st, MESH_RANGES,
+                                                                          mesh))
+            add_counts(total, c)
+            assert got == [data[a:b] for a, b in MESH_RANGES], f"level {level}: random access"
+        frames, owners = parallel.route_queries(st, [0, MIB, 5 * MIB + 3, n - 1], mesh)
+        assert list(frames) == [0, 1, 5, 9] and not owners.any(), (frames, owners)
+        (rows, plan, st_m), c = counted(ops, lambda: parallel.multihost_compress(
+            data, frame_size=MIB, mesh=mesh, level=1))
+        add_counts(total, c)
+        stitched = bytearray(st_m.size_comp)
+        for row, (off, size) in zip(rows, plan):
+            stitched[off : off + size] = row
+        blob1, st1 = blobs[1, False]
+        assert bytes(stitched) == blob1 and st_m.to_bytes() == st1.to_bytes(), "write plan"
+        log(f"[mesh] random access over {len(MESH_RANGES)} ranges across frame edges exact at "
+            f"levels 1 and 3; route_queries owners all 0; multihost_compress rows stitched by "
+            f"the write plan equal the blob")
+        res["timing"] = {level: time_mesh(zt, parallel, mesh, data, *blobs[level, False],
+                                          level, dev, smi) for level in (1, 3)}
+        res["scale"], c = mesh_scale(zt, ops, parallel, mesh, dev, smi)
+        add_counts(total, c)
+    finally:
+        dist.destroy_process_group()
+    return res, total, blobs[1, False]
+
+
+def time_mesh(zt, parallel, mesh, data, blob, st, level, dev, smi):
+    """Phase 7a's timing at one level: 5 warm runs each, in turns, of the
+    mesh encode and decode and of ``compress_archive`` and
+    ``decompress_archive`` (host bytes in and out, checksums off):
+    median and spread in MiB/s; the fenced phase split of one mesh encode
+    and one mesh decode."""
+    n = len(data)
+    fns = {
+        "mesh_enc": lambda: parallel.parallel_compress(data, mesh, frame_size=MIB, level=level),
+        "enc": lambda: zt.compress_archive(data, frame_size=MIB, level=level, device=dev),
+        "mesh_dec": lambda: parallel.parallel_decompress(blob, st, mesh),
+        "dec": lambda: zt.decompress_archive(blob, st, device=dev),
+    }
+    samples = {k: [] for k in fns}
+    for fn in fns.values():
+        fn()
+    for _ in range(5):
+        for k, fn in fns.items():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            samples[k].append(time.perf_counter() - t0)
+    rates = {k: med_spread(n, v) for k, v in samples.items()}
+    log(f"[timing] mesh level {level} (NCCL, one shard; host bytes in and out, checksums off; "
+        f"MiB/s median [spread] x5): " + ", ".join(
+            f"{k} {m:.3f} [{lo:.3f}-{hi:.3f}]" for k, (m, lo, hi) in rates.items())
+        + f"  ({smi})")
+    phases = {}
+    zt.set_timing(2)
+    for tag in ("mesh_enc", "mesh_dec"):
+        zt.phase_records.clear()
+        fns[tag]()
+        phases[tag] = dict(zt.phase_records)
+    zt.set_timing(0)
+    for tag, ph in phases.items():
+        log(f"[timing] mesh level {level} {tag} phases (fenced, s per 10 MiB): " + ", ".join(
+            f"{k} {v:.6f}" for k, v in sorted(ph.items(), key=lambda kv: -kv[1])))
+    return dict(mibs=rates, phases=phases)
+
+
+def mesh_scale(zt, ops, parallel, mesh, dev, smi):
+    """Phase 7b: one 64 MiB level-1 round trip through the mesh in 2 MiB
+    frames, against ``compress_archive``, each timed once; the fenced
+    phase split of a second mesh decode."""
+    big = build_corpus(64 << 20)
+    n = len(big)
+    fs = 2 * MIB
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    blob, st = parallel.parallel_compress(big, mesh, frame_size=fs, level=1)
+    t_enc = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out = parallel.parallel_decompress(blob, st, mesh)
+    t_dec = time.perf_counter() - t0
+    counts = dict(ops.launches)
+    assert out == big, "64 MiB: the mesh decode differs"
+    t0 = time.perf_counter()
+    single, single_st = zt.compress_archive(big, frame_size=fs, level=1, device=dev)
+    t_single = time.perf_counter() - t0
+    assert blob == single and st.to_bytes() == single_st.to_bytes(), "64 MiB: archive differs"
+    need(counts, ("match", "fse", "ring_decode"), "64 MiB mesh round trip")
+    zt.set_timing(2)
+    zt.phase_records.clear()
+    parallel.parallel_decompress(blob, st, mesh)
+    phases = dict(zt.phase_records)
+    zt.set_timing(0)
+    res = dict(frames=st.num_frames, ratio=len(blob) / n, enc_mibs=n / t_enc / MIB,
+               dec_mibs=n / t_dec / MIB, single_enc_mibs=n / t_single / MIB,
+               dec_phases=phases)
+    log(f"[mesh] 64 MiB, 2 MiB frames, level 1: {st.num_frames} frames, ratio "
+        f"{res['ratio']:.6f}; archive equal to compress_archive's; round trip exact "
+        f"(launches {counts})")
+    log(f"[timing] mesh 64 MiB (once, host bytes in and out): encode {res['enc_mibs']:.3f} "
+        f"MiB/s, decode {res['dec_mibs']:.3f}; compress_archive {res['single_enc_mibs']:.3f}  "
+        f"({smi})")
+    log("[timing] mesh 64 MiB decode phases (a second decode, fenced, s per 64 MiB): "
+        + ", ".join(f"{k} {v:.6f}" for k, v in sorted(phases.items(), key=lambda kv: -kv[1])))
+    return res, counts
+
+
+def mesh_child(rank: int, port: str, outdir: str) -> int:
+    """Phase 7c, one of two processes on the card: a gloo group (two
+    processes cannot share a card in one NCCL communicator), the 10 MiB
+    text at level 1 in 1 MiB frames. Compresses only this process's
+    frames (``multihost_compress``), writes them into one shared archive
+    at the write plan's offsets, then decodes the whole archive and
+    MESH_RANGES over the two-process mesh; writes child{rank}.json and
+    part{rank}.bin to ``outdir``."""
+    import hashlib
+
+    import torch.distributed as dist
+    from zeekstd_tpu_torch import ops, parallel
+    from zeekstd_tpu_torch.parallel.pipeline import _frame_layout
+
+    parallel.init_multihost(f"127.0.0.1:{port}", 2, rank, backend="gloo")
+    try:
+        data = build_corpus(10 << 20)
+        n = len(data)
+        mesh = parallel.make_multihost_mesh()
+        assert mesh.size == 2 and mesh.devices[0].type == "cuda"
+        _, F_pad = _frame_layout(n, MIB, mesh.size)
+        lo, hi = parallel.process_frame_slice(F_pad, mesh)
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        rows, plan, st = parallel.multihost_compress(
+            data[lo * MIB : min(hi * MIB, n)], first_frame=lo, n_total=n, frame_size=MIB,
+            mesh=mesh, level=1)
+        t_enc = time.perf_counter() - t0
+        with open(os.path.join(outdir, f"part{rank}.bin"), "wb") as f:
+            f.write(b"".join(rows))
+        path = os.path.join(outdir, "archive.bin")
+        if rank == 0:
+            with open(path, "wb") as f:
+                f.truncate(st.size_comp)
+        dist.barrier()
+        fd = os.open(path, os.O_WRONLY)
+        try:
+            for row, (off, size) in zip(rows, plan):
+                os.pwrite(fd, row, off)
+        finally:
+            os.close(fd)
+        dist.barrier()
+        with open(path, "rb") as f:
+            archive = f.read()
+        t0 = time.perf_counter()
+        out = parallel.parallel_decompress(archive, st, mesh)
+        t_dec = time.perf_counter() - t0
+        got = parallel.parallel_random_access(archive, st, MESH_RANGES, mesh)
+        res = dict(rank=rank, first_frame=lo, plan=plan, st=st.to_bytes().hex(),
+                   decoded_whole=out == data, ranges_ok=got == [data[a:b] for a, b in MESH_RANGES],
+                   ranges_sha=hashlib.sha256(b"".join(got)).hexdigest(),
+                   launches=dict(ops.launches), enc_s=t_enc, dec_s=t_dec)
+        with open(os.path.join(outdir, f"child{rank}.json"), "w") as f:
+            json.dump(res, f)
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def check_mesh_processes(ops, blob1, st1, smi, timeout=600):
+    """Phase 7c: two processes of this script (``--mesh-child``) on the
+    card. Their stitched archive must equal phase 7a's level-1 blob, both
+    seek tables its table, and both must decode the whole text and the
+    same ranges. Returns (results, their launches, summed)."""
+    work = os.path.join(ROOT, "build", "smoke_mesh")
+    os.makedirs(work, exist_ok=True)
+    for name in os.listdir(work):
+        os.remove(os.path.join(work, name))
+    port = free_port()
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--mesh-child",
+                               str(rank), str(port), work],
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+             for rank in (0, 1)]
+    try:
+        outs = [p.communicate(timeout=timeout)[0].decode(errors="replace") for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    wall = time.perf_counter() - t0
+    for rank, (p, out) in enumerate(zip(procs, outs)):
+        if p.returncode != 0:
+            raise AssertionError(f"7c: process {rank} exited {p.returncode}:\n{out[-4000:]}")
+    kids = []
+    for rank in (0, 1):
+        with open(os.path.join(work, f"child{rank}.json")) as f:
+            kids.append(json.load(f))
+    stitched = bytearray(len(blob1))
+    for rank, kid in enumerate(kids):
+        with open(os.path.join(work, f"part{rank}.bin"), "rb") as f:
+            part = f.read()
+        pos = 0
+        for off, size in kid["plan"]:
+            stitched[off : off + size] = part[pos : pos + size]
+            pos += size
+        assert pos == len(part), f"7c: process {rank}'s rows do not match its plan"
+    assert bytes(stitched) == blob1, "7c: the stitched archive differs from phase 7a's"
+    with open(os.path.join(work, "archive.bin"), "rb") as f:
+        assert f.read() == blob1, "7c: the shared archive file differs from phase 7a's"
+    assert all(bytes.fromhex(k["st"]) == st1.to_bytes() for k in kids), "7c: seek tables"
+    assert all(k["decoded_whole"] and k["ranges_ok"] for k in kids), "7c: a process's decode"
+    assert kids[0]["ranges_sha"] == kids[1]["ranges_sha"]
+    total = {k: 0 for k in ops.launches}
+    for kid in kids:
+        add_counts(total, kid["launches"])
+    log(f"[mesh] 7c: two processes on the card (gloo): frames from {kids[0]['first_frame']} and "
+        f"{kids[1]['first_frame']}; stitched archive and both seek tables equal phase 7a's; "
+        f"both decoded the whole text and the same ranges (launches {total}, {wall:.1f}s wall)")
+    log("[timing] mesh 7c (once per process, the pair sharing the card): " + "; ".join(
+        f"process {k['rank']} encode {k['enc_s']:.3f}s, decode {k['dec_s']:.3f}s" for k in kids)
+        + f"  ({smi})")
+    return dict(wall_s=wall, children=kids), total
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", help="directory for chip_smoke.json")
+    ap.add_argument("--mesh-child", nargs=3, metavar=("RANK", "PORT", "DIR"),
+                    help=argparse.SUPPRESS)
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 2
+    if args.mesh_child:
+        rank, port, outdir = args.mesh_child
+        return mesh_child(int(rank), port, outdir)
 
     import zeekstd_tpu_torch as zt
     from zeekstd_tpu_torch import _build, decode_routes, ops
@@ -1559,6 +1875,10 @@ def main():
                                                                mods)
     small_err["fse"] = max(small_err["fse"], err6)
 
+    # --- 7. the mesh pipeline on an NCCL group, and two processes ---------
+    results["mesh"], counts7, (blob7, st7) = check_mesh(zt, ops, data, dev, smi)
+    results["mesh"]["processes"], counts7c = check_mesh_processes(ops, blob7, st7, smi)
+
     sources = {
         "match": ("zeekstd_tpu_torch/csrc/match_kernel.cu", "zeekstd_tpu/ops/match_kernel.py:512"),
         "reach_tables": ("zeekstd_tpu_torch/csrc/reach_kernel.cu",
@@ -1585,9 +1905,10 @@ def main():
     # at the level-3 shapes; the byte kernels, on no archive path (as in
     # the reference), on the 10 MiB text of phase 2c. Launches add up the
     # counted runs: phases 3 and 3b, each route of 3c, the byte kernels' own
-    # run, the counted runs of phase 5, and those of phases 6a and 6b.
+    # run, the counted runs of phase 5, those of phases 6a and 6b, of 7a and
+    # 7b, and the two processes of 7c.
     runs = [counts, counts3, routes["serial"]["launches"], routes["doubling"]["launches"],
-            counts_bytes, counts5, counts6a, counts6b]
+            counts_bytes, counts5, counts6a, counts6b, counts7, counts7c]
     serial_calls, serial_checked = route_calls["serial"]
     table, extra = [], {}
     for name, path, rec_m in (("match", 1, main_rec.calls), ("reach_tables", 3, main_rec3.calls),

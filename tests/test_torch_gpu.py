@@ -915,3 +915,35 @@ def test_default_backend_is_native_on_card_machine(card):
     st = zt.SeekTable.from_seekable(zt.BytesWrapper(blob))
     assert zt.decompress_archive(blob[: st.size_comp], st, device=card) == data
     assert zt.DecodeOptions(zt.BytesWrapper(blob)).into_decoder().read(-1) == data
+
+
+@pytest.mark.parametrize("level,frame", [(1, 32 << 10), (3, 16 << 10)])
+def test_mesh8_on_card_equals_cpu(card, level, frame, monkeypatch):
+    """The 8-shard mesh over the card (one process) writes the CPU mesh's
+    archive, decodes it with one fused launch per shard that owns frames
+    (ring at level 1, wide at level 3 by ZEEKSTD_TPU_RING=0), on the
+    doubling route with either Huffman decoder, and serves ranges."""
+    from zeekstd_tpu_torch import parallel
+
+    data = _data()
+    gpu, cpu = parallel.make_mesh(["cuda"] * 8), parallel.make_mesh(["cpu"] * 8)
+    blob, st = parallel.parallel_compress(data, gpu, frame_size=frame, level=level,
+                                          checksum=True)
+    want, want_st = parallel.parallel_compress(data, cpu, frame_size=frame, level=level,
+                                               checksum=True)
+    assert blob == want and st.to_bytes() == want_st.to_bytes()
+    if level == 3:
+        monkeypatch.setenv("ZEEKSTD_TPU_RING", "0")
+    ops.reset_launches()
+    assert parallel.parallel_decompress(blob, st, gpu) == data
+    route = "ring_decode" if level == 1 else "wide_decode"
+    per_shard = -(-st.num_frames // 8)
+    assert ops.launches[route] == -(-st.num_frames // per_shard) > 1
+    monkeypatch.setenv("ZEEKSTD_TPU_MESH_EXEC", "doubling")
+    for huf in ("bitreach", "spec"):
+        monkeypatch.setenv("ZEEKSTD_TPU_HUF", huf)
+        assert parallel.parallel_decompress(blob, st, gpu) == data
+    monkeypatch.delenv("ZEEKSTD_TPU_MESH_EXEC")
+    ranges = [(100, 5000), (frame - 7, 3 * frame + 11)]
+    got = parallel.parallel_random_access(blob, st, ranges, gpu)
+    assert got == [data[a:b] for a, b in ranges]

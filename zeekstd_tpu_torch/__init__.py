@@ -15,7 +15,9 @@ The streaming ``Encoder``/``Decoder`` (``encode``, ``decode``) and the
 through their ``tpu`` backend; ``native`` (the default, ``auto``, when
 it builds) runs the host C++ runtime (``native/``) and ``python`` the
 host codec. ``frame_codec.compress_frame`` is the per-frame device
-encoder.
+encoder. ``zeekstd_tpu_torch.parallel`` (not imported here, as in the
+reference) runs the archive paths over a mesh of devices and processes
+on ``torch.distributed``.
 
 Entry points run on the CUDA card unless called with ``device="cpu"``
 (``with_device("cpu")``, ``--device cpu``), which runs each kernel's

@@ -152,6 +152,23 @@ def _match_stats_packed_fn(frames_dev, meta, seq_bound: int, B: int, F: int):
     return lits, stats, lm, ofv
 
 
+def _seq_codes(adj_ll, mls, ovs):
+    """The literal-length, match-length and offset codes (int64) of the
+    parse's (block-clamped) literal lengths, match lengths and offset
+    values."""
+    dev = adj_ll.device
+    ll_base = torch.from_numpy(seq_mod.LL_BASE.astype(np.int64)).to(dev)
+    ml_base = torch.from_numpy(seq_mod.ML_BASE.astype(np.int64)).to(dev)
+    ll_codes = torch.where(
+        adj_ll < 16, adj_ll,
+        torch.searchsorted(ll_base, adj_ll.contiguous(), right=True) - 1)
+    ml_codes = torch.where(
+        mls < 35, torch.clamp(mls - 3, min=0),
+        torch.searchsorted(ml_base, mls.contiguous(), right=True) - 1)
+    of_codes = mt.bit_length(torch.clamp(ovs, min=1)) - 1
+    return ll_codes, ml_codes, of_codes
+
+
 def _stats_tail(lls, mls, offs, n_seq, lits, n_lit, n_raw, n_valid, seq_bound: int, B: int):
     """Per-frame code derivation and per-block statistics from the
     parallel parse's triples (rows = frames). Takes true (cross-block)
@@ -170,15 +187,7 @@ def _stats_tail(lls, mls, offs, n_seq, lits, n_lit, n_raw, n_valid, seq_bound: i
     adj_ll = mstarts - torch.maximum(starts, blk * BLOCK_SIZE)
     # Same-block rep1 coding over the WRITTEN (block-clamped) lls.
     ovs = mt.rep1_offset_values(lls, adj_ll, mls, offs, n_seq, BLOCK_SIZE, seq_bound)
-    of_codes = mt.bit_length(torch.clamp(ovs, min=1)) - 1
-    ll_base = torch.from_numpy(seq_mod.LL_BASE.astype(np.int64)).to(dev)
-    ml_base = torch.from_numpy(seq_mod.ML_BASE.astype(np.int64)).to(dev)
-    ll_codes = torch.where(
-        adj_ll < 16, adj_ll,
-        torch.searchsorted(ll_base, adj_ll.contiguous(), right=True) - 1)
-    ml_codes = torch.where(
-        mls < 35, torch.clamp(mls - 3, min=0),
-        torch.searchsorted(ml_base, mls.contiguous(), right=True) - 1)
+    ll_codes, ml_codes, of_codes = _seq_codes(adj_ll, mls, ovs)
 
     def block_sum(idx, vals, size, fill=0, reduce=None):
         """Scatter into ``size`` bins plus one sink bin (dropped)."""

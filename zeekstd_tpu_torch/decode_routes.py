@@ -10,7 +10,8 @@ route stays the default.
 Both routes share two device dispatches:
   dec.huf_batch   every Huffman literal stream, decoded on the device by
                   bit reachability (``ops/huffman_spec.py``: torch glue and
-                  the two reachability kernels)
+                  the two reachability kernels), or by chunk speculation
+                  (plain torch) under ``ZEEKSTD_TPU_HUF=spec``
   dec.fse_batch   every block's FSE sequence stream (the ``fse_decode``
                   kernel); repeat offsets resolved per block
 Then:
@@ -37,6 +38,8 @@ frame, a prefix riding as a leading literal run.
 """
 
 from __future__ import annotations
+
+import os
 
 import numpy as np
 import torch
@@ -116,7 +119,9 @@ def _pow2(n: int, floor_log: int) -> int:
 
 def _huf_batch_dev(stream_list, dev):
     """Device batch Huffman decode: (dec uint8[W, out_bound] on ``dev``,
-    out_bound). No streams yields a (1, 8) dummy."""
+    out_bound), by bit reachability, or by chunk speculation under
+    ``ZEEKSTD_TPU_HUF=spec`` (``ops/huffman_spec.py``). No streams yields
+    a (1, 8) dummy."""
     if not stream_list:
         return torch.zeros((1, 8), dtype=torch.uint8, device=dev), 8
     out_bound = 1 << max(max(olen for _, olen, _ in stream_list) - 1, 1).bit_length()
@@ -147,7 +152,9 @@ def _huf_batch_dev(stream_list, dev):
     st = from_reference_arrays(dev, words=words, starts=starts, tbl_idx=tbl_idx,
                                sym=sym, nb=nb, mbs=mbs)
     ti = st["tbl_idx"].long()
-    out, _n = huffman_spec.decode_stream_bitreach(
+    decode = (huffman_spec.decode_stream_spec if os.environ.get("ZEEKSTD_TPU_HUF") == "spec"
+              else huffman_spec.decode_stream_bitreach)
+    out, _n = decode(
         st["words"], st["starts"], out_bound, st["sym"][ti], st["nb"][ti], st["mbs"][ti])
     return out, out_bound
 
