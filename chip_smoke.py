@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's archive path on one CUDA card and check it.
 
-    python3 chip_smoke.py [--out DIR]
+    python3 chip_smoke.py [--out DIR] [--blocks-only]
 
 Phases (any failure raises; nothing is caught):
   1. build   - the CUDA kernel library (one nvcc per csrc/*.cu, in
@@ -152,6 +152,27 @@ Phases (any failure raises; nothing is caught):
                seek tables must equal 7a's, and both processes must decode the
                whole text and the same ranges. A child's failure or a
                10-minute timeout fails the phase.
+  8. blocks  - the archive block sizes other than the default 32 KiB
+               (ZEEKSTD_TPU_BLOCK, read at import): one child of this script
+               per block size, 16, 64 and 128 KiB, one after another; a
+               child's failure or a 10-minute timeout fails the phase. In
+               each: (a) the 256 KiB mixed input and the long-run input of
+               tests/block_cases.py (a 100 kB literal run, a 90 kB match) at
+               levels 1 and 3 in 256 KiB frames: every match and FSE launch
+               equal to its plain version (the FSE kernel's wide instance and
+               the match kernel's wide rows above 32 KiB), the card's archive
+               the CPU port's, decoded exactly on the fused, wide, serial and
+               doubling routes; (b) the 10 MiB text at levels 1 and 3 in 1 MiB
+               frames, encoded and decoded on every route (counted); the
+               compressed bytes beside phase 3's, encode and decode MiB/s
+               (median and spread of 5) and the fenced split beside phase 4's,
+               the match kernel's ms per launch, cycles per sequence and
+               dynamic shared memory, the FSE launch's ms, and the fused-route
+               guard hand-offs per route. A block size named by
+               ZEEKSTD_TPU_BLOCK joins the three (phases 1-7 run at the
+               default 32 KiB all the same). --blocks-only runs phases 1
+               and 8 alone and ends on a line of its own, not the full
+               run's.
   table      - each kernel's row: the wrapper's CUDA-event time at its
                path's shapes; for the byte histogram, the table lookup and
                the two reachability kernels the device time alone instead
@@ -160,12 +181,14 @@ Phases (any failure raises; nothing is caught):
                that exceed 2.4 times the L2) and warm ([timing] reach); the byte kernels also cold at 160 MiB (16 copies of
                the text) and their library calls on rotated copies
                ([timing] bytes). Launches add up phases 3, 3b, 3c (each
-               route), the byte kernels' run and phases 5, 6a, 6b, 7a-7b
-               and 7c (both processes).
+               route), the byte kernels' run and phases 5, 6a, 6b, 7a-7b,
+               7c (both processes) and 8 (every child).
 
 Prints the card's name and power limit, one JSON line with the kernel
 table, and as its last line {"ok": true, "device": {...}}. With --out
-DIR it also writes the full results to DIR/chip_smoke.json.
+DIR it also writes the full results to DIR/chip_smoke.json. With
+--blocks-only the last line is {"blocks_only": [sizes], "passed": true}
+instead, and no kernel table is printed.
 """
 
 import argparse
@@ -334,8 +357,11 @@ def compare(name, a, k, m):
         t0 = time.perf_counter()
         ref = m.mk.match_plain(*a, k["BLK"], k["SBd"])
         t_plain = time.perf_counter() - t0
-        lm, ofv, litw, stat = out
-        lm0, ofv0, litw0, stat0 = (t.to(lm.device) for t in ref)
+        if len(out) != len(ref):
+            raise AssertionError("match: the kernel and its plain version return other rows")
+        # Blocks above 32 KiB add the ml row (wide records).
+        lm, ofv, litw, stat, *ml = out
+        lm0, ofv0, litw0, stat0, *ml0 = (t.to(lm.device) for t in ref)
         err = _max_err(stat, stat0)
         nseq = stat0[:, m.mk.ST_NSEQ].tolist()
         litcnt = stat0[:, m.mk.ST_LITCNT].tolist()
@@ -343,7 +369,8 @@ def compare(name, a, k, m):
         for r in range(stat.shape[0]):
             err = max(err, _max_err(lm[r, : nseq[r]], lm0[r, : nseq[r]]),
                       _max_err(ofv[r, : nseq[r]], ofv0[r, : nseq[r]]),
-                      _max_err(lb[r, : litcnt[r]], lb0[r, : litcnt[r]]))
+                      _max_err(lb[r, : litcnt[r]], lb0[r, : litcnt[r]]),
+                      *(_max_err(x[r, : nseq[r]], x0[r, : nseq[r]]) for x, x0 in zip(ml, ml0)))
     elif name == "fse":
         words, bits = m.fk.fse_encode(*a, **k)
         sync()
@@ -404,24 +431,27 @@ def compare(name, a, k, m):
     return err, t_plain
 
 
-def moved_bytes(name, a, result, m):
+def moved_bytes(name, a, result, m, k=None):
     """Bytes the function must move for these inputs: each input byte the
-    data uses read once, each output byte written once."""
+    data uses read once, each output byte written once (``k``: the call's
+    keywords; the wide layouts move one more int32 row per sequence)."""
     if name in ("reach_tables", "reach_mark"):
         return sum(t.numel() * 4 for t in a) + result.numel() * 4
     if name == "match":
         consts, meta, words = a
         mt = meta.reshape(-1, m.mk.META_COLS).cpu()
-        lm, ofv, litw, stat = result
+        stat = result[3]
         nseq = int(stat[:, m.mk.ST_NSEQ].sum())
         return (int(mt[:, m.mk.M_BLEN].sum()) + meta.numel() * 4 + consts.numel() * 4
-                + nseq * 8 + int(stat[:, m.mk.ST_LITCNT].sum()) + stat.numel() * 4)
+                + nseq * 4 * (len(result) - 2) + int(stat[:, m.mk.ST_LITCNT].sum())
+                + stat.numel() * 4)
     if name == "fse":
         consts, meta, lm, ofv, tables = a
         mt = meta.reshape(-1, m.fk.JMETA_COLS).cpu()
         nseq = int(mt[:, m.fk.J_NSEQ].clamp(min=0).sum())
         words, bits = result
-        return (nseq * 8 + tables.numel() * 4 + meta.numel() * 4 + consts.numel() * 4
+        rows = 3 if k and k.get("ml") is not None else 2
+        return (nseq * 4 * rows + tables.numel() * 4 + meta.numel() * 4 + consts.numel() * 4
                 + int(((bits.to(torch.int64) + 7) // 8).sum()) + bits.numel() * 4)
     if name == "exec":
         meta, lls, mls, ofvs, lits = a
@@ -1285,7 +1315,7 @@ def check_frame_codec(zt, ops, data, small, dev, smi, mods):
         assert frames[i] == frame_codec.compress_frame(pieces[i], checksum=True, device="cpu"), \
             f"frame_codec: the card's frame {i} differs from the CPU run's"
     for p, f in zip(pieces, frames):
-        assert zt.decompress_frame(f, device=dev) == (p, len(f)), "card decode"
+        assert zt.archive.decompress_frame(f, device=dev) == (p, len(f)), "card decode"
         assert host_decompress_frame(f) == (p, len(f)), "host decode"
     err = 0
     for a, k in rec.calls["fse"]:
@@ -1606,11 +1636,212 @@ def check_mesh_processes(ops, blob1, st1, smi, timeout=600):
     return dict(wall_s=wall, children=kids), total
 
 
+# Phase 8: the archive block sizes other than the default 32 KiB, one
+# child process each (ZEEKSTD_TPU_BLOCK is read at import).
+BLOCK_SIZES = (16 << 10, 64 << 10, 128 << 10)
+# The decode routes of phase 8, as (name, variable, value): the fused route
+# (ring at level 1, wide at level 3, as the declared windows choose), the
+# wide route forced, serial, doubling.
+BLOCK_ROUTES = (("fused", None, None), ("wide", "ZEEKSTD_TPU_RING", "0"),
+                ("serial", "ZEEKSTD_TPU_EXEC", "serial"),
+                ("doubling", "ZEEKSTD_TPU_EXEC", "doubling"))
+
+
+def decode_routes_exact(zt, blob, st, data, dev):
+    """Decode ``blob`` on every route of BLOCK_ROUTES (exact); returns the
+    fused-route guard hand-offs each counted."""
+    from zeekstd_tpu_torch import decode_routes
+
+    handoffs = {}
+    for route, var, value in BLOCK_ROUTES:
+        with exec_route(value, var) if var else contextlib.nullcontext():
+            n0 = decode_routes.serial_fallback_count()
+            assert zt.decompress_archive(blob, st, device=dev) == data, route
+            handoffs[route] = decode_routes.serial_fallback_count() - n0
+    return handoffs
+
+
+def block_child(outdir: str) -> int:
+    """Phase 8, one block size (this process's ZEEKSTD_TPU_BLOCK): (a) the
+    256 KiB mixed input and the long-run input of tests/block_cases.py at
+    levels 1 and 3 in 256 KiB frames: every match and FSE launch equals its
+    plain version, the FSE kernel on its wide instance above 32 KiB, the
+    archive the CPU port's, every route decodes it; (b) the 10 MiB text at
+    levels 1 and 3 in 1 MiB frames, encoded and decoded on every route
+    (counted), then timed. Writes block<BLK>.json to ``outdir``."""
+    import zeekstd_tpu_torch as zt
+    from tests.block_cases import long_run
+    from zeekstd_tpu_torch import archive, ops
+
+    mods = kernel_modules()
+    dev = torch.device("cuda", 0)
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+    BLK = archive.BLOCK_SIZE
+    wide = mods.mk.wide_rows(BLK)
+    res = {"block": BLK, "wide_rows": wide}
+    tag = f"[blocks {BLK >> 10} KiB]"
+
+    # (a) small inputs: kernels against their plain versions, card = CPU.
+    err = {"match": 0, "fse": 0}
+    small = {"mixed": mixed_input(256 << 10), "long_run": long_run()}
+    small_handoffs = {}
+    for name, data in small.items():
+        for level in (1, 3):
+            with Recorder() as rec:
+                blob, st = zt.compress_archive(data, frame_size=256 << 10, level=level,
+                                               checksum=True, device=dev)
+            cpu, _ = zt.compress_archive(data, frame_size=256 << 10, level=level,
+                                         checksum=True, device="cpu")
+            assert blob == cpu, f"{tag} {name} L{level}: card archive differs from the CPU's"
+            if level == 1 and not rec.calls["match"]:
+                raise AssertionError(f"{tag} {name}: level 1 did not call the match kernel")
+            for kname in ("match", "fse"):
+                for a, k in rec.calls[kname]:
+                    err[kname] = max(err[kname], compare(kname, a, k, mods)[0])
+                    if kname == "fse" and (k.get("ml") is not None) != wide:
+                        raise AssertionError(f"{tag}: the FSE call took the wrong layout")
+            small_handoffs[f"{name} L{level}"] = decode_routes_exact(zt, blob, st, data, dev)
+    res.update(small_err=err, small_handoffs=small_handoffs)
+    log(f"{tag} (a) 256 KiB mixed and long-run inputs, levels 1 and 3: match and FSE "
+        f"({'wide' if wide else 'packed'} rows) equal to their plain versions (max abs err "
+        f"{max(err.values())}); archives equal the CPU port's; every route exact; guard "
+        f"hand-offs {small_handoffs}")
+
+    # (b) the 10 MiB text, counted: encode and every route at levels 1 and 3.
+    data = build_corpus(10 << 20)
+    n = len(data)
+    calls, sizes, handoffs = {}, {}, {}
+    ops.reset_launches()
+    for level in (1, 3):
+        with Recorder() as rec:
+            blob, st = zt.compress_archive(data, frame_size=MIB, level=level, checksum=True,
+                                           device=dev)
+        calls[level] = rec.calls
+        sizes[level] = len(blob)
+        handoffs[level] = decode_routes_exact(zt, blob, st, data, dev)
+    counts = dict(ops.launches)
+    for name in ("match", "fse", "ring_decode", "wide_decode", "exec", "fse_decode",
+                 "reach_tables", "reach_mark"):
+        if counts[name] <= 0:
+            raise AssertionError(f"{tag}: kernel {name} was not launched")
+    res.update(sizes=sizes, handoffs=handoffs, launches=counts)
+    log(f"{tag} (b) 10 MiB text in 1 MiB frames: {sizes[1]} bytes at L1, {sizes[3]} at L3; "
+        f"every route exact; guard hand-offs L1 {handoffs[1]}, L3 {handoffs[3]}; launches "
+        f"{counts}")
+    # (b)'s encode launches against their plain versions (not counted): the
+    # level-1 match launch (every frame) and each level's FSE launches.
+    err_b, plain_s = {}, {}
+    err_b["match"], plain_s["match"] = compare("match", *calls[1]["match"][0], mods)
+    for level in (1, 3):
+        err_b[f"fse_level{level}"], plain_s[f"fse_level{level}"] = 0, 0.0
+        for a, k in calls[level]["fse"]:
+            if (k.get("ml") is not None) != wide:
+                raise AssertionError(f"{tag}: the 10 MiB FSE call took the wrong layout")
+            e, t = compare("fse", a, k, mods)
+            err_b[f"fse_level{level}"] = max(err_b[f"fse_level{level}"], e)
+            plain_s[f"fse_level{level}"] += t
+    res.update(err_10mib=err_b, plain_s_10mib=plain_s)
+    log(f"{tag} (b) 10 MiB: match (level 1) and FSE (levels 1 and 3, "
+        f"{'wide' if wide else 'packed'} rows) equal to their plain versions at the "
+        f"archive's shapes (max abs err {max(err_b.values())}; plain "
+        + ", ".join(f"{n} {t:.3f}s" for n, t in plain_s.items()) + ")")
+
+    # Timing (not counted): the 10 MiB paths, the match kernel, the FSE launches.
+    res["timing"] = {level: time_path(zt, data, level, dev, smi) for level in (1, 3)}
+    a, k = calls[1]["match"][0]
+    ms = time_kernel("match", a, k, mods)[0]
+    res["match"] = match_timing(mods.mk, a, k, ms)
+    res["match"]["smem_bytes"] = mods.mk.smem_bytes(BLK)
+    log(f"{tag} [timing] match: {ms:.4f} ms per launch, {res['match']['cycles_per_seq']:.1f} "
+        f"cycles per sequence, {res['match']['smem_bytes']} bytes of dynamic shared memory "
+        f"per block  ({smi})")
+    for level in (1, 3):
+        a, k = calls[level]["fse"][0]
+        ms, result = time_kernel("fse", a, k, mods)
+        moved = moved_bytes("fse", a, result, mods, k)
+        res[f"fse_level{level}"] = dict(ms=ms, bound_ms=moved / HBM_BYTES_PER_S * 1e3,
+                                        moved=moved, wide=k.get("ml") is not None)
+        log(f"{tag} [timing] fse ({'wide' if wide else 'packed'} instance, level {level}, "
+            f"10 MiB): {ms:.4f} ms per launch, bound {moved / HBM_BYTES_PER_S * 1e3:.6f} ms "
+            f"({moved} bytes)  ({smi})")
+    with open(os.path.join(outdir, f"block{BLK}.json"), "w") as f:
+        json.dump(res, f, default=str)
+    return 0
+
+
+def check_blocks(ops, smi, blocks=BLOCK_SIZES, sizes32=None, timing32=None, timeout=600):
+    """Phase 8: one child of this script (``--block-child``) per block size
+    of ``blocks``, one after another, each with ZEEKSTD_TPU_BLOCK set. A
+    child's failure or timeout fails the phase. Prints the compressed
+    bytes, the encode and decode rates and split, beside the 32 KiB
+    archive's (phases 3-4) when given. Returns (results, the children's
+    launches, summed)."""
+    work = os.path.join(ROOT, "build", "smoke_blocks")
+    os.makedirs(work, exist_ok=True)
+    for name in os.listdir(work):
+        os.remove(os.path.join(work, name))
+    kids, total = {}, {k: 0 for k in ops.launches}
+    for BLK in blocks:
+        t0 = time.perf_counter()
+        proc = subprocess.Popen([sys.executable, os.path.abspath(__file__), "--block-child",
+                                 work], env=dict(os.environ, ZEEKSTD_TPU_BLOCK=str(BLK)),
+                                stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+        try:
+            out = proc.communicate(timeout=timeout)[0].decode(errors="replace")
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        for line in out.splitlines():
+            if line.startswith("[") or "Error" in line:
+                log("  " + line)
+        if proc.returncode != 0:
+            raise AssertionError(f"8: the {BLK}-byte child exited {proc.returncode}:\n"
+                                 f"{out[-4000:]}")
+        with open(os.path.join(work, f"block{BLK}.json")) as f:
+            kid = json.load(f)
+        kid["wall_s"] = time.perf_counter() - t0
+        kids[BLK] = kid
+        add_counts(total, kid["launches"])
+    for level in (1, 3):
+        line = f"[blocks] 10 MiB L{level}: compressed bytes " + ", ".join(
+            f"{BLK >> 10} KiB {kids[BLK]['sizes'][str(level)]}" for BLK in blocks)
+        if sizes32:
+            line += f"; 32 KiB {sizes32[level]} (phase {'3' if level == 1 else '3b'})"
+        log(line)
+        for BLK in blocks:
+            t = kids[BLK]["timing"][str(level)]
+            line = (f"[blocks] {BLK >> 10} KiB L{level}: encode MiB/s {t['enc_mibs'][0]:.3f} "
+                    f"[{t['enc_mibs'][1]:.3f}-{t['enc_mibs'][2]:.3f}], decode "
+                    f"{t['dec_mibs'][0]:.3f} [{t['dec_mibs'][1]:.3f}-{t['dec_mibs'][2]:.3f}]; "
+                    f"enc.host_decisions {t['enc_phases'].get('enc.host_decisions', 0):.6f} s, "
+                    f"dec.plan {t['dec_phases'].get('dec.plan', 0):.6f} s")
+            if timing32:
+                t32 = timing32[level]
+                line += (f" (32 KiB, phase {'4' if level == 1 else '4b'}: encode "
+                         f"{t32['enc_mibs'][0]:.3f}, decode {t32['dec_mibs'][0]:.3f}, "
+                         f"{t32['enc_phases'].get('enc.host_decisions', 0):.6f} s, "
+                         f"{t32['dec_phases'].get('dec.plan', 0):.6f} s)")
+            log(line + f"  ({smi})")
+    log("[blocks] match kernel per launch (10 MiB, L1): " + ", ".join(
+        f"{BLK >> 10} KiB {kids[BLK]['match']['ms']:.4f} ms, "
+        f"{kids[BLK]['match']['cycles_per_seq']:.1f} cycles/seq, "
+        f"{kids[BLK]['match']['smem_bytes']} B shared" for BLK in blocks)
+        + f"  ({smi})")
+    log(f"[blocks] launches (phase 8, all children): {total}")
+    return {str(b): kid for b, kid in kids.items()}, total
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", help="directory for chip_smoke.json")
     ap.add_argument("--mesh-child", nargs=3, metavar=("RANK", "PORT", "DIR"),
                     help=argparse.SUPPRESS)
+    ap.add_argument("--blocks-only", action="store_true",
+                    help="run phases 1 and 8 alone (a reduced run; not the full smoke)")
+    ap.add_argument("--block-child", metavar="DIR", help=argparse.SUPPRESS)
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -1618,6 +1849,12 @@ def main():
     if args.mesh_child:
         rank, port, outdir = args.mesh_child
         return mesh_child(int(rank), port, outdir)
+    if args.block_child:
+        return block_child(args.block_child)
+    # Phases 1-7 run at the default 32 KiB blocks; a size named by
+    # ZEEKSTD_TPU_BLOCK joins phase 8's children.
+    named = os.environ.pop("ZEEKSTD_TPU_BLOCK", None)
+    blocks = tuple(sorted(set(BLOCK_SIZES) | ({int(named)} if named else set())))
 
     import zeekstd_tpu_torch as zt
     from zeekstd_tpu_torch import _build, decode_routes, ops
@@ -1643,6 +1880,11 @@ def main():
     for line in report.splitlines():
         if any(s in line for s in ("Compiling entry", "Used", "spill", ".cu:")):
             log("  " + line.strip())
+    if args.blocks_only:
+        results["blocks"], _ = check_blocks(ops, smi, blocks=blocks)
+        print(smi)
+        print(json.dumps({"blocks_only": list(blocks), "passed": True}))
+        return 0
 
     # --- 2. every kernel against its plain version ------------------------
     small = mixed_input(256 << 10)
@@ -1684,8 +1926,9 @@ def main():
                                               device="cpu", **kw)
             assert blob_b == cpu_blob, f"{kw['level']}: card archive differs from CPU archive"
             for i in range(st_b.num_frames):
-                got, _end = zt.decompress_frame(blob_b, st_b.frame_start_comp(i),
-                                                prefix=kw.get("prefix", b""), device=dev)
+                got, _end = zt.archive.decompress_frame(blob_b, st_b.frame_start_comp(i),
+                                                        prefix=kw.get("prefix", b""),
+                                                        device=dev)
                 assert got == small[st_b.frame_start_decomp(i) : st_b.frame_end_decomp(i)]
     for name in ("reach_tables", "reach_mark", "fse"):
         calls = [(a, k) for a, k in rec_b.calls[name] if a[0].is_cuda]
@@ -1784,8 +2027,8 @@ def main():
         blob_p, st_p = zt.compress_archive(new, frame_size=MIB, level=3, checksum=True,
                                            prefix=old, device=dev)
         for i in range(st_p.num_frames):
-            got, end = zt.decompress_frame(blob_p, st_p.frame_start_comp(i), prefix=old,
-                                           device=dev)
+            got, end = zt.archive.decompress_frame(blob_p, st_p.frame_start_comp(i),
+                                                   prefix=old, device=dev)
             assert got == new[st_p.frame_start_decomp(i) : st_p.frame_end_decomp(i)], i
             assert end == st_p.frame_end_comp(i)
     counts3 = dict(ops.launches)
@@ -1856,7 +2099,8 @@ def main():
         log(f"[routes] flipped bit on the {mode} route -> {corrupt_r}")
     with exec_route("doubling"):
         for i in (3, 4, 5):
-            got, end = zt.decompress_frame(archive3, st3b.frame_start_comp(i), device=dev)
+            got, end = zt.archive.decompress_frame(archive3, st3b.frame_start_comp(i),
+                                                   device=dev)
             assert got == data[st3b.frame_start_decomp(i) : st3b.frame_end_decomp(i)], i
             assert end == st3b.frame_end_comp(i)
     log("[routes] frames 3-5 through decompress_frame on the doubling route exact")
@@ -1878,6 +2122,13 @@ def main():
     # --- 7. the mesh pipeline on an NCCL group, and two processes ---------
     results["mesh"], counts7, (blob7, st7) = check_mesh(zt, ops, data, dev, smi)
     results["mesh"]["processes"], counts7c = check_mesh_processes(ops, blob7, st7, smi)
+
+    # --- 8. the archive block sizes, one child each ------------------------
+    results["blocks"], counts8 = check_blocks(
+        ops, smi, blocks=blocks, sizes32={1: len(blob), 3: len(blob3)},
+        timing32={1: {k: results[k] for k in ("enc_mibs", "dec_mibs", "enc_phases",
+                                              "dec_phases")},
+                  3: results["level3"]})
 
     sources = {
         "match": ("zeekstd_tpu_torch/csrc/match_kernel.cu", "zeekstd_tpu/ops/match_kernel.py:512"),
@@ -1906,9 +2157,9 @@ def main():
     # the reference), on the 10 MiB text of phase 2c. Launches add up the
     # counted runs: phases 3 and 3b, each route of 3c, the byte kernels' own
     # run, the counted runs of phase 5, those of phases 6a and 6b, of 7a and
-    # 7b, and the two processes of 7c.
+    # 7b, the two processes of 7c and every child of phase 8.
     runs = [counts, counts3, routes["serial"]["launches"], routes["doubling"]["launches"],
-            counts_bytes, counts5, counts6a, counts6b, counts7, counts7c]
+            counts_bytes, counts5, counts6a, counts6b, counts7, counts7c, counts8]
     serial_calls, serial_checked = route_calls["serial"]
     table, extra = [], {}
     for name, path, rec_m in (("match", 1, main_rec.calls), ("reach_tables", 3, main_rec3.calls),
@@ -1925,7 +2176,7 @@ def main():
             err, t_plain = serial_checked[name]
         else:
             err, t_plain = compare(name, a, k, mods)
-        moved = moved_bytes(name, a, result, mods)
+        moved = moved_bytes(name, a, result, mods, k)
         bound_ms = moved / HBM_BYTES_PER_S * 1e3
         lib_ms = None
         wrapper_ms = None

@@ -25,8 +25,8 @@ from zeekstd_tpu_torch.ops import match_kernel as mk
 from zeekstd_tpu_torch.ops import reach_kernel as rch
 from zeekstd_tpu_torch.ops import ring_kernel as rk
 
-from . import (byte_cases, frame_cases, fse_cases, fse_enc_cases, launch_cases, match_edges,
-               ring_cases)
+from . import (block_cases, byte_cases, frame_cases, fse_cases, fse_enc_cases, launch_cases,
+               match_edges, ring_cases)
 from . import test_torch_exec as exec_cases
 
 pytestmark = pytest.mark.gpu
@@ -483,7 +483,8 @@ def test_card_level3_and_patch_archives_equal_cpu_archives(card):
         cpu_blob, _ = zt.compress_archive(data, frame_size=32 << 10, device="cpu", **kw)
         assert blob == cpu_blob
     for i in range(st.num_frames):
-        got, _end = zt.decompress_frame(blob, st.frame_start_comp(i), prefix=old, device=card)
+        got, _end = archive_mod.decompress_frame(blob, st.frame_start_comp(i), prefix=old,
+                                                 device=card)
         assert got == data[st.frame_start_decomp(i) : st.frame_end_decomp(i)]
     for k in ("reach_tables", "reach_mark", "fse"):
         assert ops.launches[k] > before[k]
@@ -513,7 +514,7 @@ def route_calls(card):
                 os.environ["ZEEKSTD_TPU_EXEC"] = mode
                 assert zt.decompress_archive(blob, st, device=card) == data
                 assert zt.decompress_archive(blob, st, device="cpu") == data
-                got, _end = zt.decompress_frame(blob, st.frame_start_comp(1), device=card)
+                got, _end = archive_mod.decompress_frame(blob, st.frame_start_comp(1), device=card)
                 assert got == data[st.frame_start_decomp(1) : st.frame_end_decomp(1)]
     finally:
         os.environ.pop("ZEEKSTD_TPU_EXEC", None)
@@ -947,3 +948,103 @@ def test_mesh8_on_card_equals_cpu(card, level, frame, monkeypatch):
     ranges = [(100, 5000), (frame - 7, 3 * frame + 11)]
     got = parallel.parallel_random_access(blob, st, ranges, gpu)
     assert got == [data[a:b] for a, b in ranges]
+
+
+@pytest.mark.parametrize("BLK", (16 << 10, 32 << 10, 36 << 10, 64 << 10, 128 << 10))
+@pytest.mark.parametrize("name", list(block_cases.INPUTS))
+def test_match_kernel_equals_plain_at_block_sizes(card, name, BLK):
+    """The match kernel on one frame of each block case (``block_cases``;
+    the largest multiple of BLK in 256 KiB) at archive block sizes from
+    16 to 128 KiB: the packed instance up to 32 KiB, the WIDE one above
+    (a window's last 4 KiB at 36 KiB). Every row equals the plain
+    version, the wide rows included; the long-run input holds a literal
+    run and a match past 16 bits."""
+    FR = block_cases.FRAME // BLK * BLK
+    rows, lengths = match_edges._frames([block_cases.INPUTS[name][:FR]], FR)
+    meta, words = match_edges.match_inputs(rows, lengths, BLK)
+    args = [torch.from_numpy(x).to(card) for x in (fk.make_consts(), meta, words)]
+    got = mk.match(*args, BLK=BLK, SBd=BLK // 4, n_frames=1)
+    want = mk.match_plain(*(a.cpu() for a in args), BLK, BLK // 4)
+    assert len(got) == (5 if mk.wide_rows(BLK) else 4)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g.cpu(), w, rtol=0, atol=0)
+    if name == "long_run" and BLK == 128 << 10:
+        assert int(want[4].max()) > 1 << 16
+
+
+@pytest.mark.parametrize("BLK", (16 << 10, 32 << 10, 64 << 10))
+def test_match_kernel_instance_follows_the_ml_row(card, BLK):
+    """The launcher takes the WIDE instance exactly when the caller passes
+    an ``ml`` row (``wide_rows`` is the only rule): at 16 and 32 KiB the
+    WIDE instance's ll and ml, packed again, equal the packed wrapper's
+    rows; above 32 KiB the packed instance, which stages whole blocks, is
+    refused."""
+    from zeekstd_tpu_torch.ops._launch import I, L, P, ptr, stream
+
+    FR = block_cases.FRAME // BLK * BLK
+    rows, lengths = match_edges._frames([block_cases.INPUTS["long_run"][:FR]], FR)
+    meta, words = match_edges.match_inputs(rows, lengths, BLK)
+    cst, meta_d, words_d = (torch.from_numpy(x).to(card)
+                            for x in (fk.make_consts(), meta, words))
+    nrecp, SBd = meta.shape[0], BLK // 4
+    lm, ml, ofv, stat = (torch.zeros((nrecp, n), dtype=torch.int32, device=card)
+                         for n in (SBd, SBd, SBd, 512))
+    litw = torch.zeros((nrecp, BLK // 4), dtype=torch.int32, device=card)
+    fn = mk.kernel_fn("zk_match_launch", [P, P, P, L, I, I, I, I, P, P, P, P, P, P])
+    head = (ptr(cst), ptr(meta_d), ptr(words_d), words_d.numel(), nrecp, 1, BLK, SBd, ptr(lm))
+    tail = (ptr(ofv), ptr(litw), ptr(stat), stream())
+    if mk.wide_rows(BLK):
+        assert fn(*head, None, *tail) != 0
+        return
+    assert fn(*head, ptr(ml), *tail) == 0
+    want = mk.match(cst, meta_d, words_d, BLK=BLK, SBd=SBd, n_frames=1)
+    for g, w in zip(((lm << 16) | ml, ofv, litw, stat), want):
+        torch.testing.assert_close(g.cpu(), w.cpu(), rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("BLK", (64 << 10, 128 << 10))
+def test_match_kernel_equals_plain_on_collisions_at_wide_blocks(card, BLK):
+    """The 2 MiB slot-collision edge input in 128 KiB blocks (its frame
+    rows are multiples of them): the WIDE instance's windows cross over
+    lazy probes and interior inserts sharing slots."""
+    rows, lengths, _BLK, _SBd = match_edges.edge_case("collide", 2 << 20)
+    meta, words = match_edges.match_inputs(rows, lengths, BLK)
+    args = [torch.from_numpy(x).to(card) for x in (fk.make_consts(), meta, words)]
+    got = mk.match(*args, BLK=BLK, SBd=BLK // 4, n_frames=rows.shape[0])
+    want = mk.match_plain(*(a.cpu() for a in args), BLK, BLK // 4)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g.cpu(), w, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("BLK", block_cases.BLOCKS)
+def test_card_archives_equal_cpu_archives_at_block_sizes(card, BLK, monkeypatch):
+    """Archives of the block cases at levels 1 and 3 with the archive block
+    size patched (``archive.BLOCK_SIZE``, what ``ZEEKSTD_TPU_BLOCK`` sets at
+    import): the card's equals the CPU port's, the FSE kernel's wide
+    instance launched above 32 KiB, and every route decodes it on the
+    card."""
+    monkeypatch.setattr(archive_mod, "BLOCK_SIZE", BLK)
+    for name, data in block_cases.INPUTS.items():
+        for level in block_cases.LEVELS:
+            seen = []
+            fse_encode = fk.fse_encode
+
+            def record(*a, **k):
+                seen.append(k.get("ml") is not None)
+                return fse_encode(*a, **k)
+
+            monkeypatch.setattr(fk, "fse_encode", record)
+            blob, st = zt.compress_archive(data, frame_size=block_cases.FRAME, level=level,
+                                           device=card)
+            monkeypatch.setattr(fk, "fse_encode", fse_encode)
+            want, _ = zt.compress_archive(data, frame_size=block_cases.FRAME, level=level,
+                                          device="cpu")
+            assert blob == want, (name, level)
+            assert seen == [mk.wide_rows(BLK)], (name, level)
+            for env in ({}, {"ZEEKSTD_TPU_RING": "0"}, {"ZEEKSTD_TPU_EXEC": "serial"},
+                        {"ZEEKSTD_TPU_EXEC": "doubling"}):
+                for var in ("ZEEKSTD_TPU_RING", "ZEEKSTD_TPU_EXEC"):
+                    monkeypatch.delenv(var, raising=False)
+                for var, val in env.items():
+                    monkeypatch.setenv(var, val)
+                assert zt.decompress_archive(blob, st, device=card) == data, (name, level, env)

@@ -88,7 +88,7 @@ def main():
                    + ["-I", os.path.dirname(SRC), "-o", so, cu], check=True)
     lib = ctypes.CDLL(so)
     fn = lib.zk_match_launch
-    fn.argtypes = [P, P, P, L, I, I, I, I, P, P, P, P, P]
+    fn.argtypes = [P, P, P, L, I, I, I, I, P, P, P, P, P, P]
 
     dev = torch.device("cuda", 0)
     MIB = 1 << 20
@@ -104,8 +104,9 @@ def main():
             for n in (SBd, SBd, BLK // 4, 512)]
 
     def launch():
+        lm, ofv, litw, stat = outs  # 32 KiB blocks: the packed rows, no ml row
         rc = fn(ptr(consts), ptr(meta_d), ptr(words_d), words_d.numel(), nrecp, F, BLK, SBd,
-                *(ptr(t) for t in outs), stream())
+                ptr(lm), None, ptr(ofv), ptr(litw), ptr(stat), stream())
         assert rc == 0, rc
 
     launch()

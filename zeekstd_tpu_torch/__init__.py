@@ -21,18 +21,16 @@ on ``torch.distributed``.
 
 Entry points run on the CUDA card unless called with ``device="cpu"``
 (``with_device("cpu")``, ``--device cpu``), which runs each kernel's
-plain PyTorch version.
+plain PyTorch version. ``compress_frame`` and ``decompress_frame`` are
+the host codec's (``codec``), as in the reference; the device decoder of
+one frame is ``archive.decompress_frame``.
+
+``ZEEKSTD_TPU_BLOCK`` (read once, at import, by ``archive``) sets the
+archive encoder's block size, 32 KiB by default and at most 128 KiB.
 """
 
-from .archive import (
-    StagedInput,
-    compress_archive,
-    decode_frames,
-    decompress_archive,
-    decompress_frame,
-)
-from .codec.compress import CCtx
-from .codec.decompress import DCtx
+from .archive import StagedInput, compress_archive, decode_frames, decompress_archive
+from .codec import CCtx, DCtx, compress_frame, decompress_frame
 from .decode import DecodeOptions, Decoder
 from .device import (from_reference_arrays, phase_records, phase_timer, resolve_device,
                      set_timing)
@@ -61,7 +59,6 @@ __all__ = [
     "compress_archive",
     "decode_frames",
     "decompress_archive",
-    "decompress_frame",
     "from_reference_arrays",
     "phase_records",
     "phase_timer",
@@ -69,6 +66,8 @@ __all__ = [
     "set_timing",
     "CCtx",
     "DCtx",
+    "compress_frame",
+    "decompress_frame",
     "DecodeOptions",
     "Decoder",
     "CompressionProgress",

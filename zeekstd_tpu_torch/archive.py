@@ -62,9 +62,13 @@ from .plan import _plan_frame
 from .plan import checksum as content_checksum
 from .seek_table import SeekTable
 
-# The archive encoder cuts 32 KiB blocks: each block is an independent
-# FSE stream (and 4 Huffman streams), so smaller blocks widen the batch.
-BLOCK_SIZE = 32 << 10
+# The archive encoder cuts 32 KiB blocks unless ZEEKSTD_TPU_BLOCK names
+# another size (read once, at import, as the reference reads it), up to
+# the format's 128 KiB: each block is an independent FSE stream (and 4
+# Huffman streams), so smaller blocks widen the batch. Above 32 KiB a
+# sequence's ll and ml may pass 16 bits, so the FSE job rows carry them
+# in rows of their own (``mk.wide_rows``).
+BLOCK_SIZE = int(os.environ.get("ZEEKSTD_TPU_BLOCK", 32 << 10))
 assert BLOCK_SIZE <= ZSTD_BLOCK_SIZE_MAX
 
 MAX_FRAME_SIZE = 8 << 20   # the match kernel's largest frame row
@@ -109,7 +113,8 @@ class StagedInput:
 
 def _match_stats_packed_fn(frames_dev, meta, seq_bound: int, B: int, F: int):
     """Parse every frame with the match kernel; returns (literal rows
-    uint8[F, frame_size] block-strided, stats int32[F, cols], lm, ofv).
+    uint8[F, frame_size] block-strided, stats int32[F, cols], lm, ofv,
+    ml): the FSE job rows, packed (``ml`` None) or wide (``lm`` the ll).
 
     Same contract as the reference: the per-frame literal array is
     BLOCK-STRIDED (block b's literals at [b*BLOCK_SIZE, +litcnt_b)) and
@@ -124,8 +129,8 @@ def _match_stats_packed_fn(frames_dev, meta, seq_bound: int, B: int, F: int):
     words = frames_dev.contiguous().view(torch.int32).reshape(-1)
     words = torch.nn.functional.pad(words, (0, NRECP * BLKW - words.shape[0]))
     consts = torch.from_numpy(fk.make_consts()).to(dev)
-    lm, ofv, litw, stat = mk.match(consts, meta, words, BLK=BLOCK_SIZE, SBd=SBd,
-                                   n_frames=F)
+    lm, ofv, litw, stat, *ml = mk.match(consts, meta, words, BLK=BLOCK_SIZE, SBd=SBd,
+                                        n_frames=F)
 
     statf = stat[: F * B].reshape(F, B, 512)
     nseq_b = statf[:, :, mk.ST_NSEQ]
@@ -149,7 +154,7 @@ def _match_stats_packed_fn(frames_dev, meta, seq_bound: int, B: int, F: int):
         statf[:, :, mk.ST_LITHIST : mk.ST_LITHIST + 256].reshape(F, -1),
         extrep_b,
     ], dim=1)
-    return lits, stats, lm, ofv
+    return lits, stats, lm, ofv, (ml[0] if ml else None)
 
 
 def _seq_codes(adj_ll, mls, ovs):
@@ -248,9 +253,12 @@ def _parse_stats_packed_fn(frames_dev, lengths, seq_bound: int, B: int, level: i
 
 def _parse_job_rows(adj_ll, mls, ovs, seq_cnt, first_idx, B: int):
     """The FSE kernel's per-record rows from the parallel parse: record
-    f*B + b holds block b's sequences of frame f, lm = adj_ll << 16 | ml
-    and ofv, zero past the block's count (both fields fit 16 bits: a
-    block is 32 KiB and every match is at least 4 bytes)."""
+    f*B + b holds block b's sequences of frame f, zero past the block's
+    count. Returns (lm, ofv, ml). Up to 32 KiB blocks both lengths fit 16
+    bits (a literal run ends before its block does, and a match is at
+    most the block), so lm = adj_ll << 16 | ml and ``ml`` is None; above
+    (``mk.wide_rows``) lm holds adj_ll and ml the match lengths, the FSE
+    kernel's wide layout."""
     dev = adj_ll.device
     F, seq_bound = adj_ll.shape
     SBd = BLOCK_SIZE // 4
@@ -259,10 +267,14 @@ def _parse_job_rows(adj_ll, mls, ovs, seq_cnt, first_idx, B: int):
     cnt = torch.from_numpy(np.asarray(seq_cnt, np.int64)).to(dev)
     idx = torch.clamp(first[:, :, None] + k, max=seq_bound - 1).reshape(F, B * SBd)
     live = (k < cnt[:, :, None]).reshape(F, B * SBd)
-    lm = torch.where(live, torch.gather((adj_ll << 16) | mls, 1, idx), 0)
-    ofv = torch.where(live, torch.gather(ovs, 1, idx), 0)
-    return (lm.to(torch.int32).reshape(F * B, SBd).contiguous(),
-            ofv.to(torch.int32).reshape(F * B, SBd).contiguous())
+
+    def rows(v):
+        v = torch.where(live, torch.gather(v, 1, idx), 0)
+        return v.to(torch.int32).reshape(F * B, SBd).contiguous()
+
+    if mk.wide_rows(BLOCK_SIZE):
+        return rows(adj_ll), rows(ovs), rows(mls)
+    return rows((adj_ll << 16) | mls), rows(ovs), None
 
 
 def _unpack_stats(stats_np, B):
@@ -521,15 +533,15 @@ def _huf_streams(lits_d, hin, seg_bound: int, word_bound: int):
     )
 
 
-def _entropy_fn(meta_j, lm, ofv, pool, lits_d, hin, seg_bound, hword_bound):
-    """Both entropy stages of the encode path: the FSE kernel and the
-    batched Huffman stream encoder."""
+def _entropy_fn(meta_j, lm, ofv, ml, pool, lits_d, hin, seg_bound, hword_bound):
+    """Both entropy stages of the encode path: the FSE kernel (its wide
+    layout when ``ml`` is given) and the batched Huffman stream encoder."""
     dev = lm.device
     SBd = BLOCK_SIZE // 4
     fse_words, fse_bits = fk.fse_encode(
         torch.from_numpy(fk.make_consts()).to(dev),
         torch.from_numpy(meta_j).to(dev), lm, ofv,
-        torch.from_numpy(pool).to(dev), SBd=SBd, WBo=fk.word_bound(SBd),
+        torch.from_numpy(pool).to(dev), SBd=SBd, WBo=fk.word_bound(SBd), ml=ml,
     )
     huf_words = huf_bits = None
     if hin is not None:
@@ -726,15 +738,23 @@ def compress_archive(
     to the reference's ``tpu_compress_archive``.
 
     Route, as the reference chooses it: level 1 with a frame size that is
-    a multiple of 32 KiB and at most 8 MiB, under 2 GiB in all and no
-    prefix takes the match kernel; everything else the parallel parse
-    (``ops/match_tpu.py``). Frames whose parse overflows the sequence
-    bound are encoded on the host (``codec/compress.py``, level 1).
+    a multiple of ``BLOCK_SIZE`` and at most 8 MiB, under 2 GiB in all
+    and no prefix takes the match kernel; everything else the parallel
+    parse (``ops/match_tpu.py``). Frames whose parse overflows the
+    sequence bound are encoded on the host (``codec/compress.py``,
+    level 1).
 
     ``prefix`` enables patch mode: every frame may reference it, like
     zstd's ref_prefix. The parse needs block alignment, so only the last
-    floor(len/32 KiB) blocks of the prefix are searched (a decoder given
-    the whole prefix sees the same bytes at those offsets).
+    floor(len/BLOCK_SIZE) blocks of the prefix are searched (a decoder
+    given the whole prefix sees the same bytes at those offsets).
+
+    A ``ZEEKSTD_TPU_BLOCK`` the reference cannot run fails as it fails
+    there: 0 with ZeroDivisionError, a negative size with ValueError on
+    the match-kernel route and TypeError on the parse's, a size that is
+    not a multiple of 4 KiB on the match-kernel route with
+    AssertionError (``mk.match``); over 128 KiB, or not a number, the
+    import fails.
 
     With ``return_device=True`` the final pull is skipped and
     (device rows uint8[F, frame_bound], c_sizes, SeekTable) is returned.
@@ -776,6 +796,9 @@ def compress_archive(
         and F * frame_size < (1 << 31)
         and plen == 0
     )
+    if BLOCK_SIZE < 0:
+        raise (ValueError if use_match_kernel else TypeError)(
+            f"ZEEKSTD_TPU_BLOCK={BLOCK_SIZE}: a block size cannot be negative")
 
     if frame_spans is not None or plen:
         # Rows are prefix||frame in patch mode (the prefix is referenced
@@ -804,7 +827,7 @@ def compress_archive(
             meta_mk = mk.build_records(
                 F, B, BLOCK_SIZE, frame_size, lengths, n_pad=mk.bucket_nrecp(F * B),
             )
-            lits_d, stats_d, lm, ofv = _match_stats_packed_fn(
+            lits_d, stats_d, lm, ofv, ml = _match_stats_packed_fn(
                 frames_dev, torch.from_numpy(meta_mk).to(dev), seq_bound, B, F,
             )
         else:
@@ -834,14 +857,14 @@ def compress_archive(
     with phase_timer("enc.fse_dispatch") as _pt:
         if fse_jobs:
             if not use_match_kernel:
-                lm, ofv = _parse_job_rows(adj_ll, mls_d, ovs_d, stats["seq_cnt"],
-                                          stats["first_idx"], B)
+                lm, ofv, ml = _parse_job_rows(adj_ll, mls_d, ovs_d, stats["seq_cnt"],
+                                              stats["first_idx"], B)
             meta_j, pool, _ = _fse_kernel_inputs(fse_jobs, B)
             hin = seg_bound = hword_bound = None
             if huf_jobs:
                 hin, seg_bound, hword_bound = _huf_inputs(huf_jobs)
             fse_words, fse_bits, huf_words, huf_bits = _entropy_fn(
-                meta_j, lm, ofv, pool, lits_d, hin, seg_bound, hword_bound,
+                meta_j, lm, ofv, ml, pool, lits_d, hin, seg_bound, hword_bound,
             )
             _pt.fence(fse_words)
 

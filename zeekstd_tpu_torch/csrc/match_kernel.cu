@@ -4,7 +4,10 @@
 // get_match_kernel, the pallas_call at match_kernel.py:512): one record per
 // (frame, block), frame-major, each emitting (ll << 16 | ml) and
 // repeat-coded offset rows, the block's literal bytes and a 512-slot stat
-// row (counters + ll/ml/of/literal histograms). The plain version is
+// row (counters + ll/ml/of/literal histograms). Blocks above 32 KiB (the
+// WIDE instance, chosen by the caller passing `ml`; ZEEKSTD_TPU_BLOCK up
+// to 128 KiB) write ll and ml in rows of their own, since either may pass
+// 16 bits there. The plain version is
 // ops/match_kernel.py::match_plain; the rows equal it exactly.
 //
 // What bounds it on this card: the parse is serial within a frame (every
@@ -53,7 +56,22 @@
 // no earlier frame's entry can be. The whole block clears the table at each
 // frame start, stages blocks and builds the code and literal histograms
 // from the emitted rows.
+//
+// A block above 32 KiB does not fit twice beside the table (two buffers
+// of a 128 KiB block would take 384 KiB), and the table is semantic: its
+// 2^14 slots and what they hold decide the parse. So the WIDE instance
+// stages the block in windows of STAGE_W = 32 KiB (+ HEAD + TAIL) in the
+// same two buffers, the parsing warp prefetching window k + 1 with
+// cp.async while it parses window k, and switching when the position
+// crosses into the next window (a match that jumps past it stages the
+// window it lands in). Its hot path (hash words, the probe round's
+// position side) stays in the window; the reads that can reach behind the
+// window or past it (literal copies, the backward extension, inserts
+// after a backward extension, a long forward extension) check the window
+// and go through the read-only global path outside it. Shared memory is
+// then what it is at 32 KiB, for every block size.
 
+#include <algorithm>
 #include <climits>
 
 #include "common.cuh"
@@ -77,6 +95,8 @@ constexpr uint32_t M1 = 2654435761u, M2 = 0x85EBCA77u;
 // bytes past it); 16 more bytes of buffer keep an unaligned read at the
 // last offset inside it.
 constexpr int HEAD = 16, TAIL = 192;
+// The WIDE instance's window, and the largest block of the packed one.
+constexpr int STAGE_W = 32 << 10;
 
 __device__ __forceinline__ uint32_t slot(uint32_t w, uint32_t w2) {
   return ((w * M1) ^ ((w2 & 0xFFFFu) * M2)) >> (32 - HB);
@@ -116,11 +136,14 @@ struct Frame {
   }
 };
 
-// First mismatch at or after k between frame positions a + . (staged) and
+// First mismatch at or after k between frame positions a + . (the parse's
+// side: staged in the packed instance, checked against a WIDE window) and
 // b + ., capped at maxl (k < maxl): 32 lanes compare 128 bytes a round.
+template <bool WIDE>
 __device__ int extend_warp(const Frame& fr, int a, int b, int k, int maxl, int lane) {
   while (k < maxl) {
-    const uint32_t x = fr.srd32(a - fr.bs + k + 4 * lane) ^ fr.rd32(b + k + 4 * lane);
+    const int qa = a + k + 4 * lane;
+    const uint32_t x = (WIDE ? fr.rd32(qa) : fr.srd32(qa - fr.bs)) ^ fr.rd32(b + k + 4 * lane);
     const unsigned mm = __ballot_sync(FULL, x != 0);
     if (mm) {
       const int l = __ffs((int)mm) - 1;
@@ -133,17 +156,93 @@ __device__ int extend_warp(const Frame& fr, int a, int b, int k, int maxl, int l
   return k < maxl ? k : maxl;
 }
 
+// Stage bytes [4 * wstart, 4 * wstart + nbytes) of the words array into
+// dst with 16-byte cp.async copies (zero-filled outside the array); thread
+// t of nt issues its share (the whole block, or the parsing warp).
+__device__ void stage_block(uint32_t* dst, const uint32_t* words, long long nw,
+                            long long wstart, int nbytes, int t, int nt) {
+  for (int c = t; c < nbytes / 16; c += nt) {
+    const long long j = wstart + 4LL * c;
+    const long long avail = nw - j;
+    const int bytes = j < 0 ? 0 : avail >= 4 ? 16 : avail > 0 ? (int)avail * 4 : 0;
+    const uint32_t* src = bytes ? words + j : words;
+    const unsigned saddr = (unsigned)__cvta_generic_to_shared(dst + 4 * c);
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(saddr), "l"(src),
+                 "r"(bytes)
+                 : "memory");
+  }
+}
+
+__device__ __forceinline__ void commit_group() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wait_prior_group() {
+  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wait_all_groups() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// The WIDE instance's staging: two buffers of buf_words words, and the
+// block's first word in the words array.
+struct Windows {
+  uint32_t* buf0;
+  int buf_words;
+  const uint32_t* words;
+  long long nw, bw;
+  int BLK;
+
+  __device__ __forceinline__ int len(int k) const { return min(STAGE_W, BLK - k * STAGE_W); }
+  // The parsing warp stages window k of the block into buffer b.
+  __device__ __forceinline__ void stage(int k, int b, int lane) const {
+    stage_block(buf0 + b * buf_words, words, nw, bw + (long long)k * (STAGE_W / 4) - HEAD / 4,
+                HEAD + len(k) + TAIL, lane, 32);
+    commit_group();
+  }
+  __device__ __forceinline__ void show(Frame& fr, int k, int b, int bs) const {
+    fr.s = buf0 + b * buf_words + HEAD / 4;
+    fr.bs = bs + k * STAGE_W;
+    fr.slen = len(k) + TAIL;
+  }
+};
+
+// The backward extension's scan past the round's byte below: 32 bytes a
+// round from back = 1, the parse's side read staged (STAGED: the whole
+// block is staged) or checked against the window.
+template <bool STAGED>
+__device__ __forceinline__ int back_scan(const Frame& fr, int m_pos, int src, int max_back,
+                                         int lane) {
+  int back = 1;
+  while (back < max_back) {
+    const int j = back + lane;
+    const bool stop = j >= max_back || (STAGED ? fr.srd8(m_pos - fr.bs - j - 1)
+                                               : fr.rd8(m_pos - j - 1)) != fr.rd8(src - j - 1);
+    const unsigned sm = __ballot_sync(FULL, stop);
+    if (sm) {
+      back += __ffs((int)sm) - 1;
+      break;
+    }
+    back += 32;
+  }
+  return back;
+}
+
 struct CrossBlock {
   int anchor, r1, r2, r3;
 };
 
 // One record, by one warp; every lane returns the same state. Writes the
-// lm/ofv rows and the literal bytes; lane 0 stores the counters in `cnt`:
-// nseq, mlsum, litcnt, extrep, trash. The table holds (tagged position,
-// word) pairs.
-__device__ void parse_record(const Frame& fr, uint2* tab, int fbase, const int* m,
-                             CrossBlock& st, int SBd, int* lm_row, int* ofv_row,
-                             uint8_t* lit_row, int* cnt, int lane) {
+// lm/ofv rows (WIDE: ll in lm, and ml_row) and the literal bytes; lane 0
+// stores the counters in `cnt`: nseq, mlsum, litcnt, extrep, trash. The
+// table holds (tagged position, word) pairs. The packed instance reads its
+// block staged whole by the caller (`fr0`); the WIDE one stages its
+// windows itself (`win`).
+template <bool WIDE>
+__device__ void parse_record(const Frame& fr0, const Windows& win, uint2* tab, int fbase,
+                             const int* m, CrossBlock& st, int SBd, int* lm_row, int* ml_row,
+                             int* ofv_row, uint8_t* lit_row, int* cnt, int lane) {
   const int bs = m[M_BS], blen = m[M_BLEN];
   const int bend = bs + blen;
   const int lo_win = max(bend - (1 << WIN_LOG), 0);
@@ -157,10 +256,50 @@ __device__ void parse_record(const Frame& fr, uint2* tab, int fbase, const int* 
   int anchor = st.anchor, r1 = st.r1, r2 = st.r2, r3 = st.r3;
   int nseq = 0, mlsum = 0, litdst = 0, repm = 0, ext_rep = 0, trash = 0;
   int p = 0;
+  Frame fr = fr0;
+  // The staged window: block offset wofs (0 and the whole block in the
+  // packed instance), buffer cur; the window prefetched into the other
+  // buffer (-1 if none).
+  int wofs = 0, cur = 0, pre = -1;
+  if constexpr (WIDE) {
+    __syncwarp();  // the previous record's reads of both buffers are done
+    win.stage(0, 0, lane);
+    if (limit > STAGE_W) {
+      win.stage(1, 1, lane);
+      pre = 1;
+      wait_prior_group();
+    } else {
+      wait_all_groups();
+    }
+    __syncwarp();
+    win.show(fr, 0, 0, bs);
+  }
   while (p < limit) {
+    if constexpr (WIDE) {
+      if (p - wofs >= STAGE_W) {
+        // The position crossed into a later window: the prefetched one, or
+        // (after a long match) the one it landed in, staged now.
+        const int k = p / STAGE_W;
+        wait_all_groups();
+        __syncwarp();
+        if (k != pre) {
+          win.stage(k, cur ^ 1, lane);
+          wait_all_groups();
+          __syncwarp();
+        }
+        cur ^= 1;
+        wofs = k * STAGE_W;
+        win.show(fr, k, cur, bs);
+        pre = -1;
+        if (wofs + STAGE_W < limit) {
+          win.stage(k + 1, cur ^ 1, lane);
+          pre = k + 1;
+        }
+      }
+    }
     const int abs_p = bs + p;
     // Hash words of p and p + 1 from three staged words; both table reads.
-    const uint32_t* sw = fr.s + (p >> 2);
+    const uint32_t* sw = fr.s + ((p - wofs) >> 2);
     const unsigned sh = (p & 3) * 8;
     const uint64_t lo = sw[0] | (uint64_t)sw[1] << 32, hi = sw[1] | (uint64_t)sw[2] << 32;
     const uint32_t wA = (uint32_t)(lo >> sh), wB = (uint32_t)(lo >> (sh + 8));
@@ -176,7 +315,7 @@ __device__ void parse_record(const Frame& fr, uint2* tab, int fbase, const int* 
     const int hsB = hashB ? (int)eB.x - fbase : abs_p + 1;
     // One round over the four candidates.
     const int gsrc = grp == 0 ? rA : grp == 1 ? hsA : grp == 2 ? rA + 1 : hsB;
-    const uint32_t x = fr.srd32(p + (grp >> 1) + gw) ^ fr.rd32(gsrc + gw);
+    const uint32_t x = fr.srd32(p - wofs + (grp >> 1) + gw) ^ fr.rd32(gsrc + gw);
     const uint32_t xf = gi == 0 ? x & 0xFFFFFF00u : x;
     const unsigned mm = __ballot_sync(FULL, xf != 0);
     const unsigned below = __ballot_sync(FULL, gi == 0 && (x & 0xFFu));
@@ -208,10 +347,10 @@ __device__ void parse_record(const Frame& fr, uint2* tab, int fbase, const int* 
     bool hitB = anyB && (repB || 6 * mlB >= 14 + hbB + 1);
     if (hit && ((fA == 31 && capA > 31) || (anyB && fB == 31 && capB > 31))) {
       // A match past the round's 31 bytes (rare) extends on.
-      if (fA == 31 && capA > 31) mlA = extend_warp(fr, abs_p, srcA, 31, capA, lane);
+      if (fA == 31 && capA > 31) mlA = extend_warp<WIDE>(fr, abs_p, srcA, 31, capA, lane);
       lazy = !repA && mlA < LAZY_ML_MAX && lazy_ok;
       if (lazy && anyB && fB == 31 && capB > 31)
-        mlB = extend_warp(fr, abs_p + 1, srcB, 31, capB, lane);
+        mlB = extend_warp<WIDE>(fr, abs_p + 1, srcB, 31, capB, lane);
       hitB = anyB && (repB || 6 * mlB >= 14 + hbB + 1);
     }
     const int sc1 = 4 * mlA - hbA;
@@ -222,23 +361,15 @@ __device__ void parse_record(const Frame& fr, uint2* tab, int fbase, const int* 
     int ml = takeB ? mlB : mlA;
     const int off = takeB ? offB : offA;
     // Backward extension over the pending literal run: the round's byte
-    // below, then 32 bytes a round.
+    // below, then 32 bytes a round. The packed instance reads its side of
+    // it, and of the literal copy and the inserts below, staged; the WIDE
+    // one checks the window at every read (a run can begin before it),
+    // which measured faster than a warp-uniform test of the run's start.
     const int lstart = max(anchor, bs);
     const int max_back = hit ? min(m_pos - lstart, src - lo_win) : 0;
     const int gsel = takeB ? (repB ? 16 : 24) : (repA ? 0 : 8);
     if (max_back > 0 && !((below >> gsel) & 1u)) {
-      int back = 1;
-      while (back < max_back) {
-        const int j = back + lane;
-        const bool stop =
-            j >= max_back || fr.srd8(m_pos - bs - j - 1) != fr.rd8(src - j - 1);
-        const unsigned sm = __ballot_sync(FULL, stop);
-        if (sm) {
-          back += __ffs((int)sm) - 1;
-          break;
-        }
-        back += 32;
-      }
+      const int back = back_scan<!WIDE>(fr, m_pos, src, max_back, lane);
       m_pos -= back;
       src -= back;
       ml += back;
@@ -269,10 +400,20 @@ __device__ void parse_record(const Frame& fr, uint2* tab, int fbase, const int* 
       r1 = off;
       r2 = nr2;
       r3 = nr3;
-      for (int k = lane; k < ll_w; k += 32) lit_row[litdst + k] = (uint8_t)fr.srd8(lstart - bs + k);
+      if constexpr (WIDE) {
+        for (int k = lane; k < ll_w; k += 32) lit_row[litdst + k] = (uint8_t)fr.rd8(lstart + k);
+      } else {
+        for (int k = lane; k < ll_w; k += 32)
+          lit_row[litdst + k] = (uint8_t)fr.srd8(lstart - fr.bs + k);
+      }
       trash += -ll_w & 3;
       if (lane == 0) {
-        lm_row[nseq] = (ll_w << 16) | ml;
+        if constexpr (WIDE) {
+          lm_row[nseq] = ll_w;
+          ml_row[nseq] = ml;
+        } else {
+          lm_row[nseq] = (ll_w << 16) | ml;
+        }
         ofv_row[nseq] = ofv;
       }
       p = m_pos + ml - bs;
@@ -289,9 +430,18 @@ __device__ void parse_record(const Frame& fr, uint2* tab, int fbase, const int* 
     if (lane == 0 && !(lazy && hB == hA)) tab[hA] = make_uint2((unsigned)(fbase + abs_p), wA);
     if (lane == 1 && lazy) tab[hB] = make_uint2((unsigned)(fbase + abs_p + 1), wB);
     const bool ins = lane >= 2 && q < stop;
-    const int oq = ins ? q - bs : 0;
-    const uint32_t qw = fr.srd32(oq);
-    const uint32_t key = slot(qw, fr.srd32(oq + 4));
+    // Lanes without an insert read a staged word.
+    uint32_t qw, qw4;
+    if constexpr (WIDE) {
+      const int qq = ins ? q : fr.bs;
+      qw = fr.rd32(qq);
+      qw4 = fr.rd32(qq + 4);
+    } else {
+      const int oq = (ins ? q : fr.bs) - fr.bs;
+      qw = fr.srd32(oq);
+      qw4 = fr.srd32(oq + 4);
+    }
+    const uint32_t key = slot(qw, qw4);
     __syncwarp();
     if (ins) tab[key] = make_uint2((unsigned)(fbase + q), qw);
     __syncwarp();
@@ -306,8 +456,10 @@ __device__ void parse_record(const Frame& fr, uint2* tab, int fbase, const int* 
   // Block-trailing literals.
   const int lstart = max(anchor, bs);
   const int trail = max(bend - lstart, 0);
-  for (int k = lane; k < trail; k += 32) lit_row[litdst + k] = (uint8_t)fr.srd8(lstart - bs + k);
+  for (int k = lane; k < trail; k += 32)
+    lit_row[litdst + k] = (uint8_t)(WIDE ? fr.rd8(lstart + k) : fr.srd8(lstart - fr.bs + k));
   trash += -trail & 3;
+  if constexpr (WIDE) wait_all_groups();  // a prefetch the parse did not reach
   st = {anchor, r1, r2, r3};
   if (lane == 0) {
     cnt[0] = nseq;
@@ -329,90 +481,83 @@ __device__ int next_record(const int* meta, int nrecp, int f, int r, int lane) {
   return nrecp;
 }
 
-// Stage bytes [4 * wstart, 4 * wstart + nbytes) of the words array into
-// dst with 16-byte cp.async copies (zero-filled outside the array); every
-// thread of the block issues its share and commits one group.
-__device__ void stage_block(uint32_t* dst, const uint32_t* words, long long nw,
-                            long long wstart, int nbytes, int tid) {
-  for (int c = tid; c < nbytes / 16; c += THREADS) {
-    const long long j = wstart + 4LL * c;
-    const long long avail = nw - j;
-    const int bytes = j < 0 ? 0 : avail >= 4 ? 16 : avail > 0 ? (int)avail * 4 : 0;
-    const uint32_t* src = bytes ? words + j : words;
-    const unsigned saddr = (unsigned)__cvta_generic_to_shared(dst + 4 * c);
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(saddr), "l"(src),
-                 "r"(bytes)
-                 : "memory");
-  }
-}
-
-__device__ __forceinline__ void commit_group() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void wait_prior_group() {
-  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
-}
-
+template <bool WIDE>
 __global__ void __launch_bounds__(THREADS)
 match_kernel(const int* __restrict__ consts, const int* __restrict__ meta,
              const uint32_t* __restrict__ words, long long nw, int nrecp,
-             int BLK, int SBd, int* __restrict__ lm, int* __restrict__ ofv,
-             int* __restrict__ litw, int* __restrict__ stat) {
+             int BLK, int SBd, int* __restrict__ lm, int* __restrict__ mlw,
+             int* __restrict__ ofv, int* __restrict__ litw, int* __restrict__ stat) {
   extern __shared__ __align__(16) uint32_t dyn[];
   __shared__ int sstat[512];
   __shared__ int cnt[5];
   const int f = blockIdx.x, tid = threadIdx.x, lane = tid & 31;
   uint2* tab = (uint2*)dyn;
-  const int stage_bytes = HEAD + BLK + TAIL;
+  // The packed instance stages whole blocks, the WIDE one windows of at
+  // most STAGE_W bytes (the packed one takes BLK <= STAGE_W).
+  const int stage_bytes = HEAD + min(BLK, STAGE_W) + TAIL;
   const int buf_words = stage_bytes / 4 + 4;
   uint32_t* const buf0 = dyn + 2 * HSIZE;
   CrossBlock st{0, 1, 4, 8};
   bool fresh = true;
   int r = next_record(meta, nrecp, f, -1, lane);
-  if (r < nrecp) {
-    stage_block(buf0, words, nw,
-                (long long)meta[(long long)r * META_COLS + M_WOFF] * 1024 - HEAD / 4,
-                stage_bytes, tid);
+  if constexpr (!WIDE) {
+    if (r < nrecp) {
+      stage_block(buf0, words, nw,
+                  (long long)meta[(long long)r * META_COLS + M_WOFF] * 1024 - HEAD / 4,
+                  stage_bytes, tid, THREADS);
+    }
+    commit_group();
   }
-  commit_group();
   int cur = 0;
   while (r < nrecp) {
     const int* m = meta + (long long)r * META_COLS;
     // Stage the frame's next block while this one parses.
     const int rn = next_record(meta, nrecp, f, r, lane);
-    if (rn < nrecp) {
-      stage_block(buf0 + (cur ^ 1) * buf_words, words, nw,
-                  (long long)meta[(long long)rn * META_COLS + M_WOFF] * 1024 - HEAD / 4,
-                  stage_bytes, tid);
+    if constexpr (!WIDE) {
+      if (rn < nrecp) {
+        stage_block(buf0 + (cur ^ 1) * buf_words, words, nw,
+                    (long long)meta[(long long)rn * META_COLS + M_WOFF] * 1024 - HEAD / 4,
+                    stage_bytes, tid, THREADS);
+      }
+      commit_group();
     }
-    commit_group();
     if ((m[M_FLAGS] & F_FRAME_START) || fresh) {
       for (int h = tid; h < HSIZE; h += THREADS) tab[h] = make_uint2((unsigned)-(1 << 30), 0u);
       st = {0, 1, 4, 8};
       fresh = false;
     }
     for (int i = tid; i < 512; i += THREADS) sstat[i] = 0;
-    wait_prior_group();
+    if constexpr (!WIDE) wait_prior_group();
     __syncthreads();
     int* lm_row = lm + (long long)r * SBd;
+    int* ml_row = WIDE ? mlw + (long long)r * SBd : nullptr;
     int* ofv_row = ofv + (long long)r * SBd;
     uint8_t* lit_row = (uint8_t*)(litw + (long long)r * (BLK / 4));
     if (tid < 32) {
-      // The frame's first word in the words array (frames start on 4 KiB).
-      const long long fw = (long long)m[M_WOFF] * 1024 - m[M_BS] / 4;
+      // The block's and the frame's first words in the words array (frames
+      // start on 4 KiB).
+      const long long bw = (long long)m[M_WOFF] * 1024, fw = bw - m[M_BS] / 4;
       const Frame fr{words + fw, (int)max(-fw, (long long)INT_MIN),
                      (int)min(nw - fw, (long long)INT_MAX),
                      buf0 + cur * buf_words + HEAD / 4, m[M_BS], BLK + TAIL};
-      parse_record(fr, tab, m[M_FBASE], m, st, SBd, lm_row, ofv_row, lit_row, cnt, lane);
+      const Windows win{buf0, buf_words, words, nw, bw, BLK};
+      parse_record<WIDE>(fr, win, tab, m[M_FBASE], m, st, SBd, lm_row, ml_row, ofv_row,
+                         lit_row, cnt, lane);
     }
     __syncthreads();
     // Code histograms from the emitted rows (formulas of the FSE kernel)
     // and the literal histogram from the emitted bytes.
     const int nseq = cnt[0], litcnt = cnt[2];
     for (int j = tid; j < nseq; j += THREADS) {
-      const int lmv = lm_row[j];
-      const int ll = (int)((unsigned)lmv >> 16), ml = lmv & 0xFFFF;
+      int ll, ml;
+      if constexpr (WIDE) {
+        ll = lm_row[j];
+        ml = ml_row[j];
+      } else {
+        const int lmv = lm_row[j];
+        ll = (int)((unsigned)lmv >> 16);
+        ml = lmv & 0xFFFF;
+      }
       const int llc = ll < 64 ? consts[256 + ll] : 19 + zk_highbit(ll);
       const int mlb = ml - 3;
       const int mlc = mlb < 128 ? consts[320 + max(mlb, 0)] : 36 + zk_highbit(mlb);
@@ -437,30 +582,51 @@ match_kernel(const int* __restrict__ consts, const int* __restrict__ meta,
   }
 }
 
-}  // namespace
-
 // Dynamic shared memory of one block: the hash table and two staging
-// buffers of HEAD + BLK + TAIL bytes (+ 16).
-static int match_smem_bytes(int BLK) {
-  return HSIZE * (int)sizeof(uint2) + 2 * ((HEAD + BLK + TAIL) + 16);
+// buffers of HEAD + min(BLK, STAGE_W) + TAIL bytes (+ 16), as the kernel's
+// stage_bytes: 197,056 bytes at 32 KiB and above.
+int smem_bytes(int BLK) {
+  return HSIZE * (int)sizeof(uint2) + 2 * ((HEAD + std::min(BLK, STAGE_W) + TAIL) + 16);
 }
 
-extern "C" int zk_match_launch(const void* consts, const void* meta,
-                               const void* words, long long nw, int nrecp,
-                               int nframes, int BLK, int SBd, void* lm,
-                               void* ofv, void* litw, void* stat, void* stream) {
-  if (BLK <= 0 || BLK % 4096 != 0) return (int)cudaErrorInvalidValue;
-  const int smem = match_smem_bytes(BLK);
+template <bool WIDE>
+int launch(const void* consts, const void* meta, const void* words, long long nw, int nrecp,
+           int nframes, int BLK, int SBd, void* lm, void* ml, void* ofv, void* litw,
+           void* stat, void* stream) {
+  const int smem = smem_bytes(BLK);
   cudaError_t e = cudaFuncSetAttribute(
-      match_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      match_kernel<WIDE>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return (int)e;
   if (nframes > 0) {
-    match_kernel<<<nframes, THREADS, smem, (cudaStream_t)stream>>>(
-        (const int*)consts, (const int*)meta, (const uint32_t*)words, nw,
-        nrecp, BLK, SBd, (int*)lm, (int*)ofv, (int*)litw, (int*)stat);
+    match_kernel<WIDE><<<nframes, THREADS, smem, (cudaStream_t)stream>>>(
+        (const int*)consts, (const int*)meta, (const uint32_t*)words, nw, nrecp, BLK, SBd,
+        (int*)lm, (int*)ml, (int*)ofv, (int*)litw, (int*)stat);
   }
   return zk_last_error();
 }
+
+}  // namespace
+
+// `ml` selects the instance, as the caller's rule (ops/match_kernel.py,
+// wide_rows) gives it: null, the packed instance, which stages whole
+// blocks and so takes BLK up to STAGE_W (32 KiB); else the WIDE instance,
+// at any BLK up to the format's 128 KiB, which writes ll into `lm` and ml
+// into `ml`.
+extern "C" int zk_match_launch(const void* consts, const void* meta,
+                               const void* words, long long nw, int nrecp,
+                               int nframes, int BLK, int SBd, void* lm, void* ml,
+                               void* ofv, void* litw, void* stat, void* stream) {
+  if (BLK <= 0 || BLK % 4096 != 0 || BLK > (128 << 10)) return (int)cudaErrorInvalidValue;
+  if (ml != nullptr)
+    return launch<true>(consts, meta, words, nw, nrecp, nframes, BLK, SBd, lm, ml, ofv, litw,
+                        stat, stream);
+  if (BLK > STAGE_W) return (int)cudaErrorInvalidValue;
+  return launch<false>(consts, meta, words, nw, nrecp, nframes, BLK, SBd, lm, ml, ofv, litw,
+                       stat, stream);
+}
+
+// The dynamic shared memory zk_match_launch asks for at block size BLK.
+extern "C" int zk_match_smem_bytes(int BLK) { return smem_bytes(BLK); }
 
 extern "C" const char* zk_error_string(int e) {
   return cudaGetErrorString((cudaError_t)e);

@@ -9,6 +9,11 @@ block and emits, in rows of its own:
   litw (BLK/4,) the block's literal bytes packed LE into words
   stat (512,)   counters and histograms (see the ST_* layout)
 
+Blocks above 32 KiB (``wide_rows``) may hold a literal run or a match of
+2^16 bytes or more, which the packed ``lm`` cannot carry: there ``lm``
+holds ll_written and a fifth row, ``ml``, the match lengths (the FSE
+kernel's wide layout). Up to 32 KiB the packed record stays.
+
 Per visited position: hash 6 bytes into a single-entry table of
 (tagged position, word), probe rep1 first (taken unconditionally), gate
 hash matches by 6*ml >= 14 + bitlen(offset), run a 1-step lazy race,
@@ -61,9 +66,17 @@ WIN_LOG = 19       # sliding window: 512 KiB (libzstd level-1 window)
 INS_CAP = 16       # interior insertion reach (positions 1..INS_CAP, step 2)
 LAZY_ML_MAX = 32   # no lazy race once the first match is this long
 
+PACKED_BLK = 32 << 10  # the largest block whose ll and ml fit 16 bits each
+
 _M1 = 2654435761   # Knuth multiplier (wraps mod 2^32)
 _M2 = 0x85EBCA77
 _MASK32 = 0xFFFFFFFF
+
+
+def wide_rows(BLK: int) -> bool:
+    """Whether blocks of ``BLK`` bytes carry ll and ml in rows of their own
+    (above 32 KiB) rather than the packed ``ll << 16 | ml``."""
+    return BLK > PACKED_BLK
 
 
 def bucket_nrecp(n: int) -> int:
@@ -117,7 +130,8 @@ def _parse_block(data, base, m, st, ht_pos, ht_word, SBd, consts):
     """One record of the serial parse over Python ints. ``data`` holds
     the words array as bytes (zero-padded), ``base`` the frame's byte
     offset in it. Returns (lm, ofv, literal bytes, stat row) and updates
-    the cross-block state ``st`` = [anchor, r1, r2, r3] in place."""
+    the cross-block state ``st`` = [anchor, r1, r2, r3] in place. ``lm``
+    holds (ll_written, ml) pairs."""
     bs, blen, fbase = m[M_BS], m[M_BLEN], m[M_FBASE]
     bend = bs + blen
     lo_win = max(bend - (1 << WIN_LOG), 0)
@@ -206,7 +220,7 @@ def _parse_block(data, base, m, st, ht_pos, ht_word, SBd, consts):
         r1, r2, r3 = nr1, nr2, nr3
         lits += data[base + lstart:base + lstart + ll_w]
         trash += -ll_w & 3
-        lm.append((ll_w << 16) | ml)
+        lm.append((ll_w, ml))
         ofvs.append(ofv)
         stop = min(m_pos + ml, bs + limit, m_pos + 1 + INS_CAP)
         for q in range(m_pos + 1, stop, 2):
@@ -223,8 +237,8 @@ def _parse_block(data, base, m, st, ht_pos, ht_word, SBd, consts):
     st[:] = [anchor, r1, r2, r3]
 
     stat = np.zeros(512, np.int64)
-    for lmv, ov in zip(lm, ofvs):
-        llc, mlc, ofc = _code_of(consts, lmv >> 16, lmv & 0xFFFF, ov)
+    for (ll_w, ml), ov in zip(lm, ofvs):
+        llc, mlc, ofc = _code_of(consts, ll_w, ml, ov)
         stat[ST_LLHIST + llc] += 1
         stat[ST_MLHIST + mlc] += 1
         stat[ST_OFHIST + ofc] += 1
@@ -242,13 +256,16 @@ def _parse_block(data, base, m, st, ht_pos, ht_word, SBd, consts):
 
 def match_plain(consts, meta, words, BLK: int, SBd: int):
     """Plain version of the parse over Python ints, record by record.
-    ``words`` is the flat LE word array of all frames (int32)."""
+    ``words`` is the flat LE word array of all frames (int32). Returns
+    what ``match`` returns."""
     nrecp = meta.numel() // META_COLS
     mrows = meta.reshape(nrecp, META_COLS).tolist()
     consts_l = consts.reshape(-1).tolist()
     data = words.detach().cpu().contiguous().numpy().astype("<i4").tobytes()
     data += bytes(16)
+    wide = wide_rows(BLK)
     lm = np.zeros((nrecp, SBd), np.int32)
+    mlr = np.zeros((nrecp, SBd), np.int32)
     ofv = np.zeros((nrecp, SBd), np.int32)
     litw = np.zeros((nrecp, BLK), np.uint8)
     stat = np.zeros((nrecp, 512), np.int32)
@@ -263,24 +280,39 @@ def match_plain(consts, meta, words, BLK: int, SBd: int):
         rl, ro, rlits, rstat = _parse_block(
             data, base, m, st, ht_pos, ht_word, SBd, consts_l
         )
-        lm[r, : len(rl)] = rl
+        if rl:
+            ll_w, ml = np.asarray(rl, np.int64).T
+            lm[r, : len(rl)] = ll_w if wide else (ll_w << 16) | ml
+            mlr[r, : len(rl)] = ml
         ofv[r, : len(ro)] = ro
         litw[r, : len(rlits)] = np.frombuffer(bytes(rlits), np.uint8)
         stat[r] = rstat
     dev = words.device
-    return (
+    out = (
         torch.from_numpy(lm).to(dev), torch.from_numpy(ofv).to(dev),
         torch.from_numpy(litw.view(np.int32).copy()).to(dev),
         torch.from_numpy(stat).to(dev),
     )
+    return out + (torch.from_numpy(mlr).to(dev),) if wide else out
+
+
+def smem_bytes(BLK: int) -> int:
+    """Dynamic shared memory the CUDA kernel asks for per frame at block
+    size ``BLK`` (the card's limit is 232,448 bytes): 197,056 at 32 KiB,
+    and the same for every larger block, whose staging is windowed."""
+    return kernel_fn("zk_match_smem_bytes", [I])(BLK)
 
 
 def match(consts, meta, words, *, BLK: int, SBd: int, n_frames: int):
     """Parse every record. consts int32[512] (``fse_kernel.make_consts``),
     meta int32[NRECP, META_COLS], words int32[>= NRECP*BLK/4] (frame rows
     as LE words). Returns lm, ofv int32[NRECP, SBd], litw
-    int32[NRECP, BLK/4] and stat int32[NRECP, 512]; rows are exact up to
-    the counts in ``stat`` and zero past them."""
+    int32[NRECP, BLK/4] and stat int32[NRECP, 512], and for blocks above
+    32 KiB (``wide_rows``) also ml int32[NRECP, SBd], with ll_written in
+    ``lm``; rows are exact up to the counts in ``stat`` and zero past
+    them. ``BLK`` is a multiple of 4 KiB, as the reference's kernel
+    asserts."""
+    assert BLK % 4096 == 0 and SBd % 8 == 0
     if words.device.type == "cpu":
         return match_plain(consts, meta, words, BLK, SBd)
     for name, t in (("consts", consts), ("meta", meta), ("words", words)):
@@ -293,9 +325,11 @@ def match(consts, meta, words, *, BLK: int, SBd: int, n_frames: int):
     ofv = torch.zeros((nrecp, SBd), dtype=torch.int32, device=dev)
     litw = torch.zeros((nrecp, BLK // 4), dtype=torch.int32, device=dev)
     stat = torch.zeros((nrecp, 512), dtype=torch.int32, device=dev)
-    fn = kernel_fn("zk_match_launch", [P, P, P, L, I, I, I, I, P, P, P, P, P])
+    ml = torch.zeros((nrecp, SBd), dtype=torch.int32, device=dev) if wide_rows(BLK) else None
+    fn = kernel_fn("zk_match_launch", [P, P, P, L, I, I, I, I, P, P, P, P, P, P])
     rc = fn(ptr(consts), ptr(meta), ptr(words), words.numel(), nrecp, n_frames,
-            BLK, SBd, ptr(lm), ptr(ofv), ptr(litw), ptr(stat), stream())
+            BLK, SBd, ptr(lm), None if ml is None else ptr(ml), ptr(ofv), ptr(litw),
+            ptr(stat), stream())
     launches["match"] += 1
     check_rc("match", rc)
-    return lm, ofv, litw, stat
+    return (lm, ofv, litw, stat) + ((ml,) if ml is not None else ())
