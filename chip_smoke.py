@@ -173,6 +173,32 @@ Phases (any failure raises; nothing is caught):
                default 32 KiB all the same). --blocks-only runs phases 1
                and 8 alone and ends on a line of its own, not the full
                run's.
+  9. knobs   - the reference's last route variables, each set in a
+               try/finally that restores it (ZEEKSTD_TPU_REACH changes no
+               byte in the reference and the port ignores it). (a)-(d) under
+               ZEEKSTD_TPU_MATCH=xla (level 1 on the parallel parse, no
+               512 KiB window cap): (a) the 256 KiB mixed and long-run
+               inputs at level 1 in 64 and 256 KiB frames: the card's
+               archive the CPU port's, no match launch, every reach and FSE
+               launch equal to its plain version, every route exact; (b) the
+               10 MiB text at level 1 in 1 MiB frames, counted: the reach
+               kernels, the FSE kernel and the wide decoder launched, no
+               match and no ring launch, each 10 MiB launch equal to its
+               plain version, the archive decoded exactly on the card and by
+               the native runtime; the compressed bytes beside phase 3's,
+               the frames that overflowed to the host encoder, encode MiB/s
+               in turns with the match-kernel route (median and spread of
+               5 each), decode MiB/s and the fenced split beside phase 4's;
+               the parse's anchor pass on its step array by the chunked
+               kernels and by pointer doubling, equal, in turns;
+               (c) parallel_compress on a one-card mesh and (d) the
+               streaming Encoder (tpu backend) equal to (b)'s archive and
+               table. (e) one child of this script per ZEEKSTD_TPU_TIMING value (1, 2,
+               unset; --timing-child, read at import, no set_timing call):
+               1 MiB encoded and decoded on the card; under 1 and 2 the
+               phase names phase 4 prints and [timing] lines, unset nothing.
+               A child's failure or a 10-minute timeout fails the phase.
+               (e)'s launches check no kernel and stay out of the table.
   table      - each kernel's row: the wrapper's CUDA-event time at its
                path's shapes; for the byte histogram, the table lookup and
                the two reachability kernels the device time alone instead
@@ -182,7 +208,8 @@ Phases (any failure raises; nothing is caught):
                the text) and their library calls on rotated copies
                ([timing] bytes). Launches add up phases 3, 3b, 3c (each
                route), the byte kernels' run and phases 5, 6a, 6b, 7a-7b,
-               7c (both processes) and 8 (every child).
+               7c (both processes), 8 (every child) and 9 (its counted
+               runs).
 
 Prints the card's name and power limit, one JSON line with the kernel
 table, and as its last line {"ok": true, "device": {...}}. With --out
@@ -205,6 +232,8 @@ import types
 
 import numpy as np
 import torch
+
+from tests.block_cases import long_run, mixed_input
 
 MIB = 1 << 20
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -251,17 +280,6 @@ def build_corpus(target=10 << 20, seed=1898) -> bytes:
         out.append(b)
         total += len(b)
     return b"".join(out)[:target]
-
-
-def mixed_input(n: int, seed: int = 7) -> bytes:
-    """Text, an RLE run, random bytes and overlapping "abc" repeats."""
-    rng = np.random.default_rng(seed)
-    words = [bytes(rng.integers(97, 123, rng.integers(2, 9), dtype=np.uint8))
-             for _ in range(200)]
-    text = b" ".join(words[rng.integers(0, 200)] for _ in range(n // 5))
-    q = n // 4
-    return (text[: 2 * q] + b"A" * (q // 4) + bytes(rng.integers(0, 256, q, dtype=np.uint8))
-            + b"abcabcabc" * n)[:n]
 
 
 def log(msg):
@@ -796,22 +814,29 @@ def patch_pair(data: bytes, seed: int = 5):
     return old, bytes(new)
 
 
-class exec_route:
+@contextlib.contextmanager
+def env_vars(**values):
+    """Each variable set to its value (None: unset) inside the block, and
+    restored to what it was afterwards."""
+    def put(items):
+        for k, v in items:
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+    old = [(k, os.environ.get(k)) for k in values]
+    try:
+        put(values.items())
+        yield
+    finally:
+        put(old)
+
+
+def exec_route(mode, var="ZEEKSTD_TPU_EXEC"):
     """``with exec_route("serial"):`` decodes on that route
-    (ZEEKSTD_TPU_EXEC, or the variable ``var``), restoring the default
-    afterwards."""
-
-    def __init__(self, mode, var="ZEEKSTD_TPU_EXEC"):
-        self.mode = mode
-        self.var = var
-
-    def __enter__(self):
-        os.environ[self.var] = self.mode
-        return self
-
-    def __exit__(self, *exc):
-        os.environ.pop(self.var, None)
-        return False
+    (ZEEKSTD_TPU_EXEC, or the variable ``var``), restoring it afterwards."""
+    return env_vars(**{var: mode})
 
 
 def synthetic_exec_rows(ek, dev):
@@ -1670,7 +1695,6 @@ def block_child(outdir: str) -> int:
     levels 1 and 3 in 1 MiB frames, encoded and decoded on every route
     (counted), then timed. Writes block<BLK>.json to ``outdir``."""
     import zeekstd_tpu_torch as zt
-    from tests.block_cases import long_run
     from zeekstd_tpu_torch import archive, ops
 
     mods = kernel_modules()
@@ -1771,6 +1795,39 @@ def block_child(outdir: str) -> int:
     return 0
 
 
+def run_children(flag, subdir, envs, timeout=600, together=False):
+    """Run this script with ``flag`` and a work directory (build/``subdir``,
+    emptied first) once per entry of ``envs`` ({label: environment}), one
+    after another or, with ``together``, all at once. A child's nonzero
+    exit or timeout fails the phase. Returns (the work directory, {label:
+    (stdout, stderr, wall seconds)})."""
+    work = os.path.join(ROOT, "build", subdir)
+    os.makedirs(work, exist_ok=True)
+    for name in os.listdir(work):
+        os.remove(os.path.join(work, name))
+    outs = {}
+    for batch in ([list(envs)] if together else [[label] for label in envs]):
+        t0 = time.perf_counter()
+        procs = {label: subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), flag, work], env=envs[label],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE) for label in batch}
+        try:
+            for label, proc in procs.items():
+                out, err = proc.communicate(timeout=timeout)
+                outs[label] = (out.decode(errors="replace"), err.decode(errors="replace"),
+                               time.perf_counter() - t0)
+        finally:
+            for proc in procs.values():
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+        for label, proc in procs.items():
+            if proc.returncode != 0:
+                raise AssertionError(f"{flag}: the {label} child exited {proc.returncode}:\n"
+                                     f"{(outs[label][0] + outs[label][1])[-4000:]}")
+    return work, outs
+
+
 def check_blocks(ops, smi, blocks=BLOCK_SIZES, sizes32=None, timing32=None, timeout=600):
     """Phase 8: one child of this script (``--block-child``) per block size
     of ``blocks``, one after another, each with ZEEKSTD_TPU_BLOCK set. A
@@ -1778,31 +1835,18 @@ def check_blocks(ops, smi, blocks=BLOCK_SIZES, sizes32=None, timing32=None, time
     bytes, the encode and decode rates and split, beside the 32 KiB
     archive's (phases 3-4) when given. Returns (results, the children's
     launches, summed)."""
-    work = os.path.join(ROOT, "build", "smoke_blocks")
-    os.makedirs(work, exist_ok=True)
-    for name in os.listdir(work):
-        os.remove(os.path.join(work, name))
+    work, outs = run_children(
+        "--block-child", "smoke_blocks",
+        {BLK: dict(os.environ, ZEEKSTD_TPU_BLOCK=str(BLK)) for BLK in blocks}, timeout)
     kids, total = {}, {k: 0 for k in ops.launches}
     for BLK in blocks:
-        t0 = time.perf_counter()
-        proc = subprocess.Popen([sys.executable, os.path.abspath(__file__), "--block-child",
-                                 work], env=dict(os.environ, ZEEKSTD_TPU_BLOCK=str(BLK)),
-                                stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
-        try:
-            out = proc.communicate(timeout=timeout)[0].decode(errors="replace")
-        finally:
-            if proc.poll() is None:
-                proc.kill()
-                proc.wait()
-        for line in out.splitlines():
+        out, err, wall = outs[BLK]
+        for line in (out + err).splitlines():
             if line.startswith("[") or "Error" in line:
                 log("  " + line)
-        if proc.returncode != 0:
-            raise AssertionError(f"8: the {BLK}-byte child exited {proc.returncode}:\n"
-                                 f"{out[-4000:]}")
         with open(os.path.join(work, f"block{BLK}.json")) as f:
             kid = json.load(f)
-        kid["wall_s"] = time.perf_counter() - t0
+        kid["wall_s"] = wall
         kids[BLK] = kid
         add_counts(total, kid["launches"])
     for level in (1, 3):
@@ -1834,6 +1878,290 @@ def check_blocks(ops, smi, blocks=BLOCK_SIZES, sizes32=None, timing32=None, time
     return {str(b): kid for b, kid in kids.items()}, total
 
 
+# Phase 9: the reference's last route switches (ZEEKSTD_TPU_MATCH=xla,
+# ZEEKSTD_TPU_TIMING).
+KNOB_FRAMES = (64 << 10, 256 << 10)  # (a)'s frame sizes
+KNOB_KERNELS = ("reach_tables", "reach_mark", "fse")  # (a)'s encode launches
+
+
+def refuse(counts, names, what):
+    """Fail if any kernel of ``names`` was launched."""
+    launched = [k for k in names if counts[k]]
+    if launched:
+        raise AssertionError(f"{what}: kernels {launched} were launched ({counts})")
+
+
+def timing_child(outdir: str) -> int:
+    """Phase 9e, one value of ZEEKSTD_TPU_TIMING (this process's, read at
+    import; set_timing is never called): 1 MiB of the text encoded at
+    level 1 in one frame and decoded on the card; writes the timing modes,
+    the encode's and the decode's recorded phase names and the launches to
+    timing<value>.json in ``outdir``."""
+    import zeekstd_tpu_torch as zt
+    from zeekstd_tpu_torch import device, ops
+
+    dev = torch.device("cuda", 0)
+    value = os.environ.get("ZEEKSTD_TPU_TIMING", "unset")
+    modes = [device._TIMING, device._FENCE]
+    data = build_corpus(MIB)
+    ops.reset_launches()
+    blob, st = zt.compress_archive(data, frame_size=MIB, level=1, device=dev)
+    enc = sorted(device.phase_records)
+    device.phase_records.clear()
+    assert zt.decompress_archive(blob, st, device=dev) == data, "the 1 MiB round trip differs"
+    dec = sorted(device.phase_records)
+    with open(os.path.join(outdir, f"timing{value}.json"), "w") as f:
+        json.dump(dict(modes=modes, enc=enc, dec=dec, launches=dict(ops.launches)), f)
+    return 0
+
+
+def check_timing_children(phase4, timeout=600):
+    """Phase 9e: one child of this script (``--timing-child``) per value of
+    ZEEKSTD_TPU_TIMING, 1, 2 and unset, all at once. Under 1 and 2 a child
+    must record every phase name phase 4 printed (the reference's) and
+    write [timing] lines; unset, nothing. A child's failure or timeout
+    fails the phase. Returns the results; the children's launches check
+    no kernel, so they stay out of the kernels line."""
+    base = {k: v for k, v in os.environ.items() if k != "ZEEKSTD_TPU_TIMING"}
+    work, outs = run_children(
+        "--timing-child", "smoke_timing",
+        {value: dict(base, ZEEKSTD_TPU_TIMING=value) if value != "unset" else base
+         for value in ("1", "2", "unset")}, timeout, together=True)
+    res = {}
+    for value, (_out, err, _wall) in outs.items():
+        with open(os.path.join(work, f"timing{value}.json")) as f:
+            kid = json.load(f)
+        lines = [ln for ln in err.splitlines() if ln.startswith("[timing] ")]
+        on = value in ("1", "2")
+        if kid["modes"] != [on, value == "2"]:
+            raise AssertionError(f"9e: ZEEKSTD_TPU_TIMING={value} gave modes {kid['modes']}")
+        for tag in ("enc", "dec"):
+            want = set(phase4[f"{tag}_phases"]) if on else set()
+            missing, extra = want - set(kid[tag]), (set(kid[tag]) if not on else set())
+            if missing or extra:
+                raise AssertionError(f"9e: ZEEKSTD_TPU_TIMING={value}: {tag} phases missing "
+                                     f"{sorted(missing)}, unexpected {sorted(extra)}")
+        if on != bool(lines) or (on and len(lines) < len(kid["enc"]) + len(kid["dec"])):
+            raise AssertionError(f"9e: ZEEKSTD_TPU_TIMING={value} wrote {len(lines)} "
+                                 f"[timing] lines")
+        res[value] = dict(kid, timing_lines=len(lines))
+        log(f"[knobs] (e) ZEEKSTD_TPU_TIMING={value}: modes {kid['modes']}, "
+            f"{len(kid['enc'])} encode and {len(kid['dec'])} decode phases recorded, "
+            f"{len(lines)} [timing] lines")
+    return res
+
+
+def check_knobs(zt, ops, mods, data, dev, smi, base):
+    """Phase 9: the reference's route switches on the card. ``base`` holds
+    phase 3's level-1 and phase 3b's level-3 blobs (checksums on) and phase
+    4's timing. (a)-(d) run under ZEEKSTD_TPU_MATCH=xla: (a) the 256 KiB
+    mixed and long-run inputs at level 1 in 64 and 256 KiB frames, the card
+    equal to the CPU port, every reach and FSE launch to its plain version,
+    no match launch, every route exact; (b) the 10 MiB text at level 1 in
+    1 MiB frames (1 MiB windows, so the wide decoder): reach, FSE and wide
+    launches each equal to its plain version, no match or ring launch,
+    exact on the card and through the native runtime; the frames that
+    overflowed to the host encoder; encode in turns with the match-kernel
+    route, decode, and the fenced split beside phase 4's; the anchor pass
+    on the chunked kernels and by pointer doubling, in turns; (c) the
+    one-card mesh and (d) the streaming Encoder equal (b)'s archive. (e)
+    ``check_timing_children``. Returns (results, the launches of the
+    counted runs, summed)."""
+    from zeekstd_tpu_torch import archive as archive_mod
+    from zeekstd_tpu_torch import parallel
+    from zeekstd_tpu_torch.ops import match_tpu
+    from zeekstd_tpu_torch.native import loader
+
+    res, total = {}, {k: 0 for k in ops.launches}
+    err = {k: 0 for k in KNOB_KERNELS}
+    n = len(data)
+
+    def hold(rec, names, err, plain_s=None):
+        """Every card call of ``names`` in ``rec`` against its plain version:
+        the max abs error into ``err``, the plain seconds into ``plain_s``."""
+        for name in names:
+            for a, k in rec.calls[name]:
+                if a[0].is_cuda:
+                    e, t = compare(name, a, k, mods)
+                    err[name] = max(err.get(name, 0), e)
+                    if plain_s is not None:
+                        plain_s[name] = plain_s.get(name, 0.0) + t
+
+    with env_vars(ZEEKSTD_TPU_MATCH="xla"):
+        # (a) small inputs.
+        small = {"mixed": mixed_input(256 << 10), "long_run": long_run()}
+        for name, d in small.items():
+            for fs in KNOB_FRAMES:
+                with Recorder() as rec:
+                    (blob, st), c = counted(ops, lambda: zt.compress_archive(
+                        d, frame_size=fs, level=1, checksum=True, device=dev))
+                add_counts(total, c)
+                cpu, cpu_st = zt.compress_archive(d, frame_size=fs, level=1, checksum=True,
+                                                  device="cpu")
+                what = f"9a {name} in {fs >> 10} KiB frames"
+                assert blob == cpu and st.to_bytes() == cpu_st.to_bytes(), \
+                    f"{what}: the card's archive differs from the CPU port's"
+                need(c, KNOB_KERNELS, what)
+                refuse(c, ("match",), what)
+                hold(rec, KNOB_KERNELS, err)
+                decode_routes_exact(zt, blob, st, d, dev)
+        log(f"[knobs] (a) ZEEKSTD_TPU_MATCH=xla, 256 KiB mixed and long-run inputs at L1 in "
+            f"64 and 256 KiB frames: archives equal the CPU port's, no match launch, reach and "
+            f"FSE equal to their plain versions (max abs err {max(err.values())}), every route "
+            f"exact")
+
+        # (b) the 10 MiB text at level 1 in 1 MiB frames, counted.
+        overflow, reach_args = [], []
+        real_jobs, real_reach = archive_mod._host_jobs, match_tpu.greedy_reachability
+
+        def spy(F, lengths, ovf, *a, **k):
+            overflow.append(np.asarray(ovf).copy())
+            return real_jobs(F, lengths, ovf, *a, **k)
+
+        def reach_spy(*a, **k):
+            reach_args.append((a, k))
+            return real_reach(*a, **k)
+
+        archive_mod._host_jobs, match_tpu.greedy_reachability = spy, reach_spy
+        try:
+            ops.reset_launches()
+            with Recorder() as rec_b:
+                t0 = time.perf_counter()
+                blob_x, st_x = zt.compress_archive(data, frame_size=MIB, level=1, checksum=True,
+                                                   device=dev)
+                t_enc = time.perf_counter() - t0
+                archive_x = blob_x + st_x.to_bytes(zt.Format.FOOT)
+                t0 = time.perf_counter()
+                out = zt.decompress_archive(archive_x, zt.SeekTable.from_bytes(archive_x),
+                                            device=dev)
+                t_dec = time.perf_counter() - t0
+            counts_b = dict(ops.launches)
+        finally:
+            archive_mod._host_jobs, match_tpu.greedy_reachability = real_jobs, real_reach
+        assert out == data, "9b: the card's decode of the level-1 parse archive differs"
+        add_counts(total, counts_b)
+        need(counts_b, KNOB_KERNELS + ("wide_decode",), "9b")
+        refuse(counts_b, ("match", "ring_decode"), "9b")
+        c_off, d_off = st_x.cumulative_offsets()
+        assert loader.decompress_stream_mt(blob_x, [int(x) for x in c_off],
+                                           [int(x) for x in d_off], nthreads=0) == data, \
+            "9b: the native runtime's decode differs"
+        over = [int(f) for f in np.flatnonzero(overflow[0])]
+        ratio_k = len(blob_x) / len(base["blob1"])
+        log(f"[knobs] (b) 10 MiB L1 parse in 1 MiB frames: {len(blob_x)} bytes against phase "
+            f"3's match-kernel {len(base['blob1'])} ({ratio_k:.6f} of it; ratio "
+            f"{len(blob_x) / n:.6f}), first encode {t_enc:.3f}s, first decode {t_dec:.3f}s (wide "
+            f"route); card and native decodes exact; frames over seq_bound to the host "
+            f"encoder: {over or 'none'}; launches {counts_b}")
+        err_b, plain_s = {}, {}
+        hold(rec_b, KNOB_KERNELS + ("wide_decode",), err_b, plain_s)
+        kernel_ms = {}
+        for name in KNOB_KERNELS + ("wide_decode",):
+            a, k = next((a, k) for a, k in rec_b.calls[name] if a[0].is_cuda)
+            ms, result = time_kernel(name, a, k, mods)
+            kernel_ms[name] = dict(ms=ms, calls=len(rec_b.calls[name]),
+                                   bound_ms=moved_bytes(name, a, result, mods, k)
+                                   / HBM_BYTES_PER_S * 1e3)
+        log("[knobs] (b) 10 MiB launches equal to their plain versions (max abs err "
+            f"{max(err_b.values())}; plain " + ", ".join(f"{k} {t:.3f}s" for k, t in plain_s.items())
+            + "); ms per launch " + ", ".join(
+                f"{k} {v['ms']:.4f} (bound {v['bound_ms']:.6f}, {v['calls']} call(s))"
+                for k, v in kernel_ms.items()) + f"  ({smi})")
+        # (b)'s anchor pass on its two branches (not counted), in turns on the
+        # parse's own step array: the chunked kernels (rows 8-9) and the
+        # pointer doubling that shapes they do not tile take.
+        (step, n_r, blk), k_r = reach_args[0]
+        branches = {"chunked": lambda: real_reach(step, n_r, blk, **k_r),
+                    "doubling": lambda: real_reach(step, n_r, blk)}
+        assert torch.equal(branches["chunked"](), branches["doubling"]()), \
+            "9b: pointer doubling's anchors differ from the chunked kernels'"
+        got = {name: [] for name in branches}
+        for _ in range(5):
+            for name, fn in branches.items():
+                got[name].append(cuda_ms(fn, 1)[0])
+        reach_ms = {name: (sorted(v)[2], min(v), max(v)) for name, v in got.items()}
+        c, d = reach_ms["chunked"], reach_ms["doubling"]
+        log(f"[knobs] (b) anchor pass per call ({tuple(step.shape)} steps, step_max "
+            f"{k_r.get('step_max')}; CUDA events, median [range] x5 in turns): chunked kernels "
+            f"{c[0]:.4f} [{c[1]:.4f}-{c[2]:.4f}] ms, pointer doubling {d[0]:.4f} [{d[1]:.4f}-"
+            f"{d[2]:.4f}] ms, anchors equal  ({smi})")
+        res.update(small_err=err, err_10mib=err_b, plain_s_10mib=plain_s,
+                   bytes=len(blob_x), bytes_match_kernel=len(base["blob1"]), overflow=over,
+                   launches=counts_b, kernel_ms=kernel_ms, reach_ms=reach_ms)
+
+    # (b) timing: encode in turns with the match-kernel route, decode, split.
+    staged = zt.StagedInput(data, MIB, device=dev)
+    samples = {"xla": [], "kernel": []}
+    for rep in range(6):
+        for mode in samples:
+            with env_vars(ZEEKSTD_TPU_MATCH=mode):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                zt.compress_archive(staged, frame_size=MIB, level=1, return_device=True)
+                torch.cuda.synchronize()
+                if rep:  # the first turn warms both routes
+                    samples[mode].append(time.perf_counter() - t0)
+    enc = {mode: med_spread(n, s) for mode, s in samples.items()}
+    with env_vars(ZEEKSTD_TPU_MATCH="xla"):
+        blob_nc, st_nc = zt.compress_archive(staged, frame_size=MIB, level=1)
+        zt.decompress_archive(blob_nc, st_nc, return_device=True, device=dev)
+        dec_s = []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            zt.decompress_archive(blob_nc, st_nc, return_device=True, device=dev)
+            torch.cuda.synchronize()
+            dec_s.append(time.perf_counter() - t0)
+        dec = med_spread(n, dec_s)
+        zt.set_timing(2)
+        try:
+            zt.phase_records.clear()
+            zt.compress_archive(staged, frame_size=MIB, level=1, return_device=True)
+            enc_phases = dict(zt.phase_records)
+            zt.phase_records.clear()
+            zt.decompress_archive(blob_nc, st_nc, return_device=True, device=dev)
+            dec_phases = dict(zt.phase_records)
+        finally:
+            zt.set_timing(0)
+    log(f"[knobs] (b) [timing] L1 encode MiB/s in turns: parse (ZEEKSTD_TPU_MATCH=xla) "
+        f"median {enc['xla'][0]:.3f} [{enc['xla'][1]:.3f}-{enc['xla'][2]:.3f}] x5, match "
+        f"kernel {enc['kernel'][0]:.3f} [{enc['kernel'][1]:.3f}-{enc['kernel'][2]:.3f}] x5 "
+        f"({enc['xla'][0] / enc['kernel'][0]:.3f} of it); wide decode of the parse archive "
+        f"{dec[0]:.3f} [{dec[1]:.3f}-{dec[2]:.3f}] x5 (phase 4's ring decode "
+        f"{base['timing']['dec_mibs'][0]:.3f})  ({smi})")
+    for tag, ph, ph4 in (("enc", enc_phases, base["timing"]["enc_phases"]),
+                         ("dec", dec_phases, base["timing"]["dec_phases"])):
+        log(f"[knobs] (b) [timing] L1 parse {tag} phases (fenced, s per 10 MiB; phase 4's "
+            f"beside): " + ", ".join(f"{k} {v:.6f} ({ph4.get(k, 0):.6f})"
+                                     for k, v in sorted(ph.items(), key=lambda kv: -kv[1])))
+    res.update(enc_mibs=enc, dec_mibs=dec, enc_phases=enc_phases, dec_phases=dec_phases)
+
+    with env_vars(ZEEKSTD_TPU_MATCH="xla"):
+        # (c) the mesh on one card (no process group).
+        mesh = parallel.make_mesh([dev])
+        (blob_m, st_m), c = counted(ops, lambda: parallel.parallel_compress(
+            data, mesh, frame_size=MIB, level=1, checksum=True))
+        add_counts(total, c)
+        assert blob_m == blob_x and st_m.to_bytes() == st_x.to_bytes(), \
+            "9c: the one-card mesh archive differs from compress_archive's"
+        refuse(c, ("match",), "9c")
+        need(c, KNOB_KERNELS, "9c")
+        # (d) the streaming Encoder on the tpu backend.
+        streamed, c = counted(ops, lambda: stream_encode(zt, data, dev, 1))
+        add_counts(total, c)
+        assert streamed == archive_x, "9d: the streaming archive differs from compress_archive's"
+        refuse(c, ("match",), "9d")
+        need(c, KNOB_KERNELS, "9d")
+    log("[knobs] (c) parallel_compress on a one-card mesh and (d) the streaming Encoder at L1 "
+        "under ZEEKSTD_TPU_MATCH=xla: equal to compress_archive's archive and table, no match "
+        "launch")
+
+    # (e) ZEEKSTD_TPU_TIMING, read at import: one child per value.
+    res["timing_children"] = check_timing_children(base["timing"])
+    log(f"[knobs] launches (phase 9, counted runs): {total}")
+    return res, total
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", help="directory for chip_smoke.json")
@@ -1842,6 +2170,7 @@ def main():
     ap.add_argument("--blocks-only", action="store_true",
                     help="run phases 1 and 8 alone (a reduced run; not the full smoke)")
     ap.add_argument("--block-child", metavar="DIR", help=argparse.SUPPRESS)
+    ap.add_argument("--timing-child", metavar="DIR", help=argparse.SUPPRESS)
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -1851,6 +2180,8 @@ def main():
         return mesh_child(int(rank), port, outdir)
     if args.block_child:
         return block_child(args.block_child)
+    if args.timing_child:
+        return timing_child(args.timing_child)
     # Phases 1-7 run at the default 32 KiB blocks; a size named by
     # ZEEKSTD_TPU_BLOCK joins phase 8's children.
     named = os.environ.pop("ZEEKSTD_TPU_BLOCK", None)
@@ -2130,6 +2461,12 @@ def main():
                                               "dec_phases")},
                   3: results["level3"]})
 
+    # --- 9. the reference's route switches --------------------------------
+    results["knobs"], counts9 = check_knobs(
+        zt, ops, mods, data, dev, smi,
+        dict(blob1=blob, blob3=blob3, timing={k: results[k] for k in (
+            "enc_mibs", "dec_mibs", "enc_phases", "dec_phases")}))
+
     sources = {
         "match": ("zeekstd_tpu_torch/csrc/match_kernel.cu", "zeekstd_tpu/ops/match_kernel.py:512"),
         "reach_tables": ("zeekstd_tpu_torch/csrc/reach_kernel.cu",
@@ -2157,9 +2494,10 @@ def main():
     # the reference), on the 10 MiB text of phase 2c. Launches add up the
     # counted runs: phases 3 and 3b, each route of 3c, the byte kernels' own
     # run, the counted runs of phase 5, those of phases 6a and 6b, of 7a and
-    # 7b, the two processes of 7c and every child of phase 8.
+    # 7b, the two processes of 7c, every child of phase 8 and phase 9's
+    # counted runs.
     runs = [counts, counts3, routes["serial"]["launches"], routes["doubling"]["launches"],
-            counts_bytes, counts5, counts6a, counts6b, counts7, counts7c, counts8]
+            counts_bytes, counts5, counts6a, counts6b, counts7, counts7c, counts8, counts9]
     serial_calls, serial_checked = route_calls["serial"]
     table, extra = [], {}
     for name, path, rec_m in (("match", 1, main_rec.calls), ("reach_tables", 3, main_rec3.calls),

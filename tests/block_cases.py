@@ -7,7 +7,10 @@ and ``chip_smoke.py`` phase 8 use them on the card.
 - ``text``: 256 KiB of word text, one frame of two 128 KiB blocks;
 - ``long_run``: 20 kB of text, 100 kB of random bytes, a 90 kB repeat of
   them (one match longer than 16 bits can hold), then text: a literal run
-  of 100 kB and a match of 90 kB, each past 16 bits.
+  of 100 kB and a match of 90 kB, each past 16 bits;
+- ``mixed_input(n)``: text, an RLE run, random bytes and "abc" repeats,
+  the mixed input of ``chip_smoke.py`` (phases 2, 8 and 9) and of
+  ``tests/test_torch_knobs.py`` and the card tests of the route variables.
 """
 
 from __future__ import annotations
@@ -48,6 +51,18 @@ def long_run(n: int = 256 * KIB, seed: int = 12) -> bytes:
     head = word_text(20_000, seed + 1)
     body = head + rand + rand[:90_000]
     return (body + word_text(max(n - len(body), 0), seed + 2))[:n]
+
+
+def mixed_input(n: int, seed: int = 7) -> bytes:
+    """Text, an RLE run, random bytes and overlapping "abc" repeats: the
+    first ``n`` bytes."""
+    rng = np.random.default_rng(seed)
+    words = [bytes(rng.integers(97, 123, rng.integers(2, 9), dtype=np.uint8))
+             for _ in range(200)]
+    text = b" ".join(words[rng.integers(0, 200)] for _ in range(n // 5))
+    q = n // 4
+    return (text[: 2 * q] + b"A" * (q // 4) + bytes(rng.integers(0, 256, q, dtype=np.uint8))
+            + b"abcabcabc" * n)[:n]
 
 
 INPUTS = {"text": word_text(256 * KIB), "long_run": long_run()}

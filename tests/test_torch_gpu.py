@@ -6,7 +6,10 @@ imports no JAX, so it runs where JAX is not installed.
 """
 
 import io
+import json
 import os
+import subprocess
+import sys
 
 import numpy as np
 import pytest
@@ -22,6 +25,7 @@ from zeekstd_tpu_torch.ops import entropy
 from zeekstd_tpu_torch.ops import exec_kernel as ek
 from zeekstd_tpu_torch.ops import fse_kernel as fk
 from zeekstd_tpu_torch.ops import match_kernel as mk
+from zeekstd_tpu_torch.ops import match_tpu as mt
 from zeekstd_tpu_torch.ops import reach_kernel as rch
 from zeekstd_tpu_torch.ops import ring_kernel as rk
 
@@ -1048,3 +1052,82 @@ def test_card_archives_equal_cpu_archives_at_block_sizes(card, BLK, monkeypatch)
                 for var, val in env.items():
                     monkeypatch.setenv(var, val)
                 assert zt.decompress_archive(blob, st, device=card) == data, (name, level, env)
+
+
+# --- the reference's route switches (ZEEKSTD_TPU_MATCH, ZEEKSTD_TPU_TIMING) ---
+
+
+@pytest.mark.parametrize("frame", [64 << 10, 256 << 10])
+def test_card_match_xla_archive_equals_cpu(card, frame, monkeypatch):
+    """``ZEEKSTD_TPU_MATCH=xla`` at level 1: the 256 KiB mixed input's
+    archive on the card (the parallel parse) equals the CPU port's, with no
+    match launch and both reachability kernels launched, and decodes."""
+    monkeypatch.setenv("ZEEKSTD_TPU_MATCH", "xla")
+    data = block_cases.mixed_input(256 << 10)
+    before = dict(ops.launches)
+    blob, st = zt.compress_archive(data, frame_size=frame, level=1, checksum=True, device=card)
+    after = dict(ops.launches)
+    want, want_st = zt.compress_archive(data, frame_size=frame, level=1, checksum=True,
+                                        device="cpu")
+    assert blob == want and st.to_bytes() == want_st.to_bytes()
+    assert after["match"] == before["match"]
+    assert after["reach_tables"] > before["reach_tables"]
+    assert after["reach_mark"] > before["reach_mark"]
+    assert zt.decompress_archive(blob, st, device=card) == data
+
+
+@pytest.mark.parametrize("n,block", [(1 << 20, 32 << 10), (256 << 10, 128 << 10)],
+                         ids=["1m-32k", "256k-128k"])
+def test_card_anchor_pass_doubling_equals_chunked(card, n, block):
+    """``greedy_reachability`` on the card: pointer doubling (no
+    ``step_max``, the branch untiled shapes take) gives the chunked
+    kernels' anchors, and launches no reachability kernel."""
+    rng = np.random.default_rng(n + block)
+    step = np.minimum(rng.integers(1, mt.SMAX + 1, (3, n)),
+                      (block - np.arange(n) % block)[None, :]).astype(np.int32)
+    step = torch.from_numpy(step).to(card)
+    chunked = mt.greedy_reachability(step, n, block, step_max=mt.SMAX)
+    before = dict(ops.launches)
+    doubling = mt.greedy_reachability(step, n, block)
+    assert torch.equal(doubling, chunked)
+    assert ops.launches["reach_tables"] == before["reach_tables"]
+    assert ops.launches["reach_mark"] == before["reach_mark"]
+
+
+# The encode phases of the reference's tpu_compress_archive
+# (zeekstd_tpu/tpu_archive.py); the port merges enc.huf_dispatch into
+# enc.fse_dispatch.
+REF_ENC_PHASES = {"enc.input_stage", "enc.parse_dispatch", "enc.stats_pull",
+                  "enc.host_decisions", "enc.fse_dispatch", "enc.huf_dispatch",
+                  "enc.bits_pull", "enc.plan_layout", "enc.assemble_dispatch",
+                  "enc.blob_pull"}
+
+TIMING_CHILD = """
+import json, sys
+sys.path.insert(0, {root!r})
+import torch
+from zeekstd_tpu_torch import archive, device
+from tests.block_cases import word_text
+modes = [device._TIMING, device._FENCE]
+data = word_text(1 << 20)
+blob, st = archive.compress_archive(data, frame_size=1 << 20, level=1, device="cuda")
+enc = sorted(device.phase_records)
+assert archive.decompress_archive(blob, st, device="cuda") == data
+print(json.dumps(dict(modes=modes, enc=enc)))
+"""
+
+
+def test_card_timing_child_records_reference_phases(card):
+    """A child with ``ZEEKSTD_TPU_TIMING=2`` (read at import, no
+    ``set_timing`` call) times the card's encode in the reference's phase
+    names and writes ``[timing]`` lines."""
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    proc = subprocess.run([sys.executable, "-c", TIMING_CHILD.format(root=root)], cwd=root,
+                          env=dict(os.environ, ZEEKSTD_TPU_TIMING="2"), capture_output=True,
+                          text=True, timeout=600)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    got = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert got["modes"] == [True, True]
+    assert {"enc.parse_dispatch", "enc.host_decisions", "enc.fse_dispatch"} <= set(got["enc"])
+    assert set(got["enc"]) <= REF_ENC_PHASES
+    assert any(ln.startswith("[timing] enc.parse_dispatch") for ln in proc.stderr.splitlines())

@@ -5,8 +5,9 @@ Port of the archive routes of ``zeekstd_tpu/tpu_archive.py``.
 
 Encode (``compress_archive``):
   device  parse + per-block statistics, all frames: the match kernel
-          (level 1) or the parallel parse with the chunked reachability
-          kernels (every other level, and prefix mode)
+          (level 1, unless ``ZEEKSTD_TPU_MATCH=xla``) or the parallel
+          parse with the chunked reachability kernels (every other level,
+          prefix mode, and level 1 under ``=xla``)
   host    literal / sequence table decisions from the pulled statistics;
           frames whose parse overflowed are encoded on the host
   device  FSE kernel (sequence bitstreams) + Huffman literal streams
@@ -723,6 +724,23 @@ def _assemble_jit(seg_dest, seg_base, c_sizes, frame_bound, static_pool,
     )
 
 
+def match_route(level: int, frame_size: int, n_frames: int, prefix_len: int = 0) -> bool:
+    """Whether an archive parses on the match kernel: the reference's rule
+    (level 1, a frame size that is a multiple of ``BLOCK_SIZE`` and at most
+    8 MiB, under 2 GiB in all, no prefix) with ``ZEEKSTD_TPU_MATCH`` read
+    at each call. The card stands in for the reference's TPU backend, so
+    unset and ``=kernel`` take the kernel on every device and ``=xla`` the
+    parallel parse (the reference's default off a TPU)."""
+    return (
+        level == 1
+        and frame_size % BLOCK_SIZE == 0
+        and frame_size <= MAX_FRAME_SIZE
+        and n_frames * frame_size < (1 << 31)
+        and prefix_len == 0
+        and os.environ.get("ZEEKSTD_TPU_MATCH", "") != "xla"
+    )
+
+
 def compress_archive(
     data,
     frame_size: int = 2 << 20,
@@ -732,17 +750,22 @@ def compress_archive(
     prefix: bytes = b"",
     frame_spans=None,
     device=None,
+    *,
+    _route_frames: int | None = None,
 ):
     """Compress ``data`` (bytes, or a ``StagedInput``) into seekable frames
     at ``level`` (1-19); returns (frames_blob, SeekTable), byte-identical
-    to the reference's ``tpu_compress_archive``.
+    to the reference's ``tpu_compress_archive`` under the same
+    ``ZEEKSTD_TPU_MATCH``.
 
-    Route, as the reference chooses it: level 1 with a frame size that is
-    a multiple of ``BLOCK_SIZE`` and at most 8 MiB, under 2 GiB in all
-    and no prefix takes the match kernel; everything else the parallel
-    parse (``ops/match_tpu.py``). Frames whose parse overflows the
-    sequence bound are encoded on the host (``codec/compress.py``,
-    level 1).
+    Route, as the reference chooses it (``match_route``): level 1 takes
+    the match kernel unless ``ZEEKSTD_TPU_MATCH=xla``, the frame size or
+    the prefix rules it out; everything else the parallel parse
+    (``ops/match_tpu.py``). Frames whose parse overflows the sequence
+    bound are encoded on the host (``codec/compress.py``, level 1).
+    ``_route_frames`` is private to the mesh: the frame count the route
+    rule reads in place of this call's (the shards' padded count, as the
+    reference's mesh decides once for every shard).
 
     ``prefix`` enables patch mode: every frame may reference it, like
     zstd's ref_prefix. The parse needs block alignment, so only the last
@@ -789,13 +812,7 @@ def compress_archive(
         F = -(-n // frame_size)
     B = -(-frame_size // BLOCK_SIZE)
     seq_bound = min(1 << 18, max(2048, frame_size // 8))
-    use_match_kernel = (
-        level == 1
-        and frame_size % BLOCK_SIZE == 0
-        and frame_size <= MAX_FRAME_SIZE
-        and F * frame_size < (1 << 31)
-        and plen == 0
-    )
+    use_match_kernel = match_route(level, frame_size, _route_frames or F, plen)
     if BLOCK_SIZE < 0:
         raise (ValueError if use_match_kernel else TypeError)(
             f"ZEEKSTD_TPU_BLOCK={BLOCK_SIZE}: a block size cannot be negative")

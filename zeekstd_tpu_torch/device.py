@@ -4,11 +4,14 @@ Entry points run on the CUDA card unless the caller passes
 ``device="cpu"``; with no card they raise instead of continuing on the
 CPU. ``phase_timer``/``phase_records`` keep the phase names of the JAX
 package's accounting (``enc.parse_dispatch``, ``dec.fused_exec``, ...),
-so the two packages' breakdowns compare line by line.
+so the two packages' breakdowns compare line by line. Timing starts off
+unless ``ZEEKSTD_TPU_TIMING`` is ``1`` (wall clock) or ``2`` (fenced) when
+the package is imported; ``set_timing`` switches it at any time.
 """
 
 from __future__ import annotations
 
+import os
 import sys
 import time
 
@@ -46,8 +49,9 @@ def from_reference_arrays(device=None, **arrays) -> dict[str, torch.Tensor]:
     return out
 
 
-_TIMING = False
-_FENCE = False
+# Read once at import, as the reference reads ZEEKSTD_TPU_TIMING.
+_TIMING = os.environ.get("ZEEKSTD_TPU_TIMING") in ("1", "2")
+_FENCE = os.environ.get("ZEEKSTD_TPU_TIMING") == "2"
 
 # Phase wall times of the most recent timed run, keyed by phase name
 # (seconds, accumulated across enters).

@@ -5,9 +5,10 @@ also holds the kernel's plain PyTorch version:
 
 - ``match_kernel.match`` - level-1 LZ77 parse, one thread block per frame;
 - ``reach_kernel.chunk_pointer_tables`` and ``reach_kernel.chunk_mark`` -
-  the anchor pass of the parallel parse (levels 2-19, prefix mode, and
-  level-1 frame sizes the match kernel does not take, ``match_tpu.py``)
-  and of the device Huffman decode (``huffman_spec.py``);
+  the anchor pass of the parallel parse (levels 2-19, prefix mode,
+  level-1 frame sizes the match kernel does not take and level 1 under
+  ``ZEEKSTD_TPU_MATCH=xla``, ``match_tpu.py``) and of the device Huffman
+  decode (``huffman_spec.py``);
 - ``fse_kernel.fse_encode`` - FSE sequence bitstreams, one block per job;
 - ``decode_kernel.wide_decode`` - fused FSE decode and sequence execution
   for any window, in three stages: FSE decode per block, a scan per frame

@@ -203,10 +203,11 @@ def greedy_reachability(step, n: int, block_size: int | None = None,
     visits. Steps never cross a multiple of ``block_size``, so every block
     start is an anchor and blocks are independent.
 
-    The reference's route rule, less its backend and environment terms:
-    the chunked kernels when ``step_max`` <= SMAX and the shapes tile,
-    else pointer doubling with an explicit sink node (a match ending
-    exactly at the end does not mark the final byte)."""
+    The reference's route rule, less its backend term and its
+    ``ZEEKSTD_TPU_REACH`` term (that variable changes no byte, so the port
+    ignores it): the chunked kernels when ``step_max`` <= SMAX and the
+    shapes tile, else pointer doubling with an explicit sink node (a match
+    ending exactly at the end does not mark the final byte)."""
     F = step.shape[0]
     dev = step.device
     eff_block = min(block_size, n) if block_size else n

@@ -190,16 +190,19 @@ def parallel_parse_step(mesh: Mesh, frame_size: int, seq_bound: int, level: int 
     return step
 
 
-def _encode_block(chunk: bytes, frame_size: int, checksum: bool, level: int, dev):
+def _encode_block(chunk: bytes, frame_size: int, checksum: bool, level: int, dev,
+                  F_loc: int):
     """One shard's frames: (rows uint8[k, w] on ``dev``, c_sizes, d_sizes).
-    An empty chunk is the empty input's one empty frame."""
+    An empty chunk is the empty input's one empty frame. The level-1 route
+    is the reference's mesh rule: ``archive.match_route`` on ``F_loc``
+    frames, the padded shard every shard shares, not the chunk's own."""
     if not chunk:
         blob = archive_mod.empty_frame(checksum)
         rows = torch.frombuffer(bytearray(blob), dtype=torch.uint8)[None].to(dev)
         return rows, [len(blob)], [0]
     rows, c_sizes, st = archive_mod.compress_archive(
         chunk, frame_size=frame_size, checksum=checksum, return_device=True, level=level,
-        device=dev)
+        device=dev, _route_frames=F_loc)
     return rows, [int(c) for c in c_sizes], [st.frame_size_decomp(i) for i in range(st.num_frames)]
 
 
@@ -252,7 +255,7 @@ def parallel_compress(
         with phase_timer("mesh.stage"):
             start = (lo - first_frame) * frame_size
             chunk = data[start : start + int(lengths[lo:hi].sum())]
-        blocks.append(_encode_block(chunk, frame_size, checksum, level, dev))
+        blocks.append(_encode_block(chunk, frame_size, checksum, level, dev, F_loc))
 
     cdev = mesh.collective_device()
     n_rows = len(mesh.devices) * F_loc
