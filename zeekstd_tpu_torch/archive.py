@@ -51,7 +51,7 @@ from .codec import sequences as seq_mod
 from .codec.compress import compress_frame
 from .codec.seq_encode import _choose_table, write_num_sequences
 from .constants import ZSTD_BLOCK_SIZE_MAX
-from .device import from_reference_arrays, phase_timer, resolve_device
+from .device import from_reference_arrays, phase_timer, resolve_device, trace_range
 from .native import loader
 from .ops import assemble, entropy
 from .ops import decode_kernel as dk
@@ -100,12 +100,13 @@ class StagedInput:
         self.frame_size = frame_size
         n = len(data)
         F = -(-n // frame_size)
-        frames = np.zeros((F, frame_size), np.uint8)
-        lengths = np.zeros(F, np.int32)
-        for i in range(F):
-            chunk = data[i * frame_size : (i + 1) * frame_size]
-            frames[i, : len(chunk)] = np.frombuffer(chunk, np.uint8)
-            lengths[i] = len(chunk)
+        with trace_range("enc.input_rows"):
+            frames = np.zeros((F, frame_size), np.uint8)
+            lengths = np.zeros(F, np.int32)
+            for i in range(F):
+                chunk = data[i * frame_size : (i + 1) * frame_size]
+                frames[i, : len(chunk)] = np.frombuffer(chunk, np.uint8)
+                lengths[i] = len(chunk)
         self.lengths = lengths
         with phase_timer("enc.input_stage") as _pt:
             self.frames_dev = torch.from_numpy(frames).to(self.device)
@@ -316,24 +317,25 @@ def _host_jobs(
     cascade).
     """
     blocks = []  # descriptors for device-encoded blocks
-    for f in range(F):
-        if overflow[f]:
-            continue
-        n_blocks_f = -(-int(lengths[f]) // BLOCK_SIZE)
-        lit_lo = 0
-        for b in range(n_blocks_f):
-            b_len = min(BLOCK_SIZE, int(lengths[f]) - b * BLOCK_SIZE)
-            if lit_stride is not None:
-                lit_lo = b * lit_stride
-            desc = {
-                "frame": f, "block": b, "len": b_len,
-                "nseq": int(seq_cnt[f, b]), "first": int(first_idx[f, b]),
-                "lit_lo": lit_lo, "nlit": int(litcnt[f, b]),
-            }
-            if extrep is not None and extrep[f, b]:
-                desc["ext_rep"] = True
-            lit_lo += int(litcnt[f, b])
-            blocks.append(desc)
+    with trace_range("enc.host_decisions.blocks"):
+        for f in range(F):
+            if overflow[f]:
+                continue
+            n_blocks_f = -(-int(lengths[f]) // BLOCK_SIZE)
+            lit_lo = 0
+            for b in range(n_blocks_f):
+                b_len = min(BLOCK_SIZE, int(lengths[f]) - b * BLOCK_SIZE)
+                if lit_stride is not None:
+                    lit_lo = b * lit_stride
+                desc = {
+                    "frame": f, "block": b, "len": b_len,
+                    "nseq": int(seq_cnt[f, b]), "first": int(first_idx[f, b]),
+                    "lit_lo": lit_lo, "nlit": int(litcnt[f, b]),
+                }
+                if extrep is not None and extrep[f, b]:
+                    desc["ext_rep"] = True
+                lit_lo += int(litcnt[f, b])
+                blocks.append(desc)
 
     # Literal mode decisions + Huffman tables. Blocks reuse the previous
     # block's tree (Treeless_Literals_Block, RFC 8878 3.1.1.1) when its
@@ -343,82 +345,83 @@ def _host_jobs(
     huf_jobs = []
     prev_tree = {}  # frame -> (tree_id, nb int64[256], codes256, nb256)
     tree_ids = iter(range(1, 1 << 30))
-    for d in blocks:
-        f, b = d["frame"], d["block"]
-        hist = lit_hist[f, b].astype(np.int64)
-        nlit = d["nlit"]
-        d["lit_mode"] = "raw"
-        nz = np.nonzero(hist)[0]
-        if nlit == 0:
-            continue
-        if len(nz) == 1:
-            d["lit_mode"] = "rle"
-            d["rle_byte"] = int(nz[0])
-            continue
-        if nlit < 64 or d["nseq"] == 0:
-            continue
-
-        est_reuse = None
-        prev = prev_tree.get(f)
-        if prev is not None and np.all(prev[1][nz] > 0):
-            reuse_bits = int(np.dot(hist[nz], prev[1][nz]))
-            est_reuse = 6 + (reuse_bits + 7) // 8 + 4 + 5
-
-        tree = codes256n = nb256n = None
-        est_new = None
-        native_ht = loader.huf_table(hist)
-        if native_ht is not None:
-            tree, codes256n, nbu8 = native_ht
-            nb256n = nbu8.astype(np.int32)
-            stream_bits = int(np.dot(hist, nb256n.astype(np.int64)))
-            est_new = len(tree) + 6 + (stream_bits + 7) // 8 + 4 + 5
-        else:
-            # The native code refused this histogram; the reference then
-            # tries the Python table code, and so does the port.
-            try:
-                freqs = {int(s): int(hist[s]) for s in nz}
-                lengths_map = huf.package_merge_lengths(freqs)
-                weights = huf.lengths_to_weights(lengths_map, int(nz.max()))
-                tree = huf.write_weights(weights)
-                codes, nb, _ = huf.build_encode_table(weights)
-                codes256n = np.zeros(256, np.uint32)
-                codes256n[: len(codes)] = codes
-                nb256n = np.zeros(256, np.int32)
-                nb256n[: len(nb)] = nb
-                stream_bits = int(
-                    np.dot(hist[: len(nb)], np.asarray(nb, np.int64))
-                )
-                est_new = len(tree) + 6 + (stream_bits + 7) // 8 + 4 + 5
-            except Exception:
-                pass
-
-        if est_reuse is not None and (est_new is None or est_reuse <= est_new):
-            if est_reuse >= nlit:
+    with trace_range("enc.host_decisions.huf"):
+        for d in blocks:
+            f, b = d["frame"], d["block"]
+            hist = lit_hist[f, b].astype(np.int64)
+            nlit = d["nlit"]
+            d["lit_mode"] = "raw"
+            nz = np.nonzero(hist)[0]
+            if nlit == 0:
                 continue
-            d["lit_mode"] = "huf"
-            d["treeless"] = True
-            d["tree"] = b""
-            d["tree_id"] = prev[0]
-            codes256, nb256 = prev[2], prev[3]
-        elif est_new is not None and est_new < nlit:
-            d["lit_mode"] = "huf"
-            d["tree"] = tree
-            d["tree_id"] = next(tree_ids)
-            codes256 = codes256n
-            nb256 = nb256n
-            prev_tree[f] = (
-                d["tree_id"], nb256n.astype(np.int64), codes256, nb256,
-            )
-        else:
-            continue
-        seg = (nlit + 3) // 4
-        segs = [seg, seg, seg, nlit - 3 * seg]
-        d["huf_streams"] = []
-        off = 0
-        for sl in segs:
-            d["huf_streams"].append(len(huf_jobs))
-            huf_jobs.append((f, d["lit_lo"] + off, sl, codes256, nb256))
-            off += sl
+            if len(nz) == 1:
+                d["lit_mode"] = "rle"
+                d["rle_byte"] = int(nz[0])
+                continue
+            if nlit < 64 or d["nseq"] == 0:
+                continue
+
+            est_reuse = None
+            prev = prev_tree.get(f)
+            if prev is not None and np.all(prev[1][nz] > 0):
+                reuse_bits = int(np.dot(hist[nz], prev[1][nz]))
+                est_reuse = 6 + (reuse_bits + 7) // 8 + 4 + 5
+
+            tree = codes256n = nb256n = None
+            est_new = None
+            native_ht = loader.huf_table(hist)
+            if native_ht is not None:
+                tree, codes256n, nbu8 = native_ht
+                nb256n = nbu8.astype(np.int32)
+                stream_bits = int(np.dot(hist, nb256n.astype(np.int64)))
+                est_new = len(tree) + 6 + (stream_bits + 7) // 8 + 4 + 5
+            else:
+                # The native code refused this histogram; the reference then
+                # tries the Python table code, and so does the port.
+                try:
+                    freqs = {int(s): int(hist[s]) for s in nz}
+                    lengths_map = huf.package_merge_lengths(freqs)
+                    weights = huf.lengths_to_weights(lengths_map, int(nz.max()))
+                    tree = huf.write_weights(weights)
+                    codes, nb, _ = huf.build_encode_table(weights)
+                    codes256n = np.zeros(256, np.uint32)
+                    codes256n[: len(codes)] = codes
+                    nb256n = np.zeros(256, np.int32)
+                    nb256n[: len(nb)] = nb
+                    stream_bits = int(
+                        np.dot(hist[: len(nb)], np.asarray(nb, np.int64))
+                    )
+                    est_new = len(tree) + 6 + (stream_bits + 7) // 8 + 4 + 5
+                except Exception:
+                    pass
+
+            if est_reuse is not None and (est_new is None or est_reuse <= est_new):
+                if est_reuse >= nlit:
+                    continue
+                d["lit_mode"] = "huf"
+                d["treeless"] = True
+                d["tree"] = b""
+                d["tree_id"] = prev[0]
+                codes256, nb256 = prev[2], prev[3]
+            elif est_new is not None and est_new < nlit:
+                d["lit_mode"] = "huf"
+                d["tree"] = tree
+                d["tree_id"] = next(tree_ids)
+                codes256 = codes256n
+                nb256 = nb256n
+                prev_tree[f] = (
+                    d["tree_id"], nb256n.astype(np.int64), codes256, nb256,
+                )
+            else:
+                continue
+            seg = (nlit + 3) // 4
+            segs = [seg, seg, seg, nlit - 3 * seg]
+            d["huf_streams"] = []
+            off = 0
+            for sl in segs:
+                d["huf_streams"].append(len(huf_jobs))
+                huf_jobs.append((f, d["lit_lo"] + off, sl, codes256, nb256))
+                off += sl
 
     # Sequence table choices from code histograms. Passing the previous
     # block's chosen table enables Repeat_Mode; tbl_id/dep_tbl_id let
@@ -426,34 +429,35 @@ def _host_jobs(
     fse_jobs = []
     prev_cat = {}  # (frame, cat) -> (tbl_id, enc_table)
     cat_ids = iter(range(1, 1 << 30))
-    for d in blocks:
-        if d["nseq"] == 0:
-            continue
-        f, b = d["frame"], d["block"]
-        choices = {}
-        d["tbl_id"] = {}
-        d["dep_tbl_id"] = {}
-        for cat, hist, defaults in (
-            ("ll", ll_hist[f, b], (seq_mod.LL_DEFAULT_NORM, seq_mod.LL_DEFAULT_LOG, 35, 9)),
-            ("of", of_hist[f, b], (seq_mod.OF_DEFAULT_NORM, seq_mod.OF_DEFAULT_LOG, 31, 8)),
-            ("ml", ml_hist[f, b], (seq_mod.ML_DEFAULT_NORM, seq_mod.ML_DEFAULT_LOG, 52, 9)),
-        ):
-            prev = prev_cat.get((f, cat))
-            choice = _choose_table(
-                None, cat, *defaults[:2], defaults[2], defaults[3],
-                prev_table=prev[1] if prev else None, hist=hist,
-            )
-            choices[cat] = choice
-            if choice[0] == seq_mod.MODE_REPEAT:
-                d["tbl_id"][cat] = prev[0]
-                d["dep_tbl_id"][cat] = prev[0]
-            else:
-                tid = next(cat_ids)
-                d["tbl_id"][cat] = tid
-                prev_cat[(f, cat)] = (tid, choice[1])
-        d["tables"] = choices
-        d["fse_job"] = len(fse_jobs)
-        fse_jobs.append(d)
+    with trace_range("enc.host_decisions.fse_tables"):
+        for d in blocks:
+            if d["nseq"] == 0:
+                continue
+            f, b = d["frame"], d["block"]
+            choices = {}
+            d["tbl_id"] = {}
+            d["dep_tbl_id"] = {}
+            for cat, hist, defaults in (
+                ("ll", ll_hist[f, b], (seq_mod.LL_DEFAULT_NORM, seq_mod.LL_DEFAULT_LOG, 35, 9)),
+                ("of", of_hist[f, b], (seq_mod.OF_DEFAULT_NORM, seq_mod.OF_DEFAULT_LOG, 31, 8)),
+                ("ml", ml_hist[f, b], (seq_mod.ML_DEFAULT_NORM, seq_mod.ML_DEFAULT_LOG, 52, 9)),
+            ):
+                prev = prev_cat.get((f, cat))
+                choice = _choose_table(
+                    None, cat, *defaults[:2], defaults[2], defaults[3],
+                    prev_table=prev[1] if prev else None, hist=hist,
+                )
+                choices[cat] = choice
+                if choice[0] == seq_mod.MODE_REPEAT:
+                    d["tbl_id"][cat] = prev[0]
+                    d["dep_tbl_id"][cat] = prev[0]
+                else:
+                    tid = next(cat_ids)
+                    d["tbl_id"][cat] = tid
+                    prev_cat[(f, cat)] = (tid, choice[1])
+            d["tables"] = choices
+            d["fse_job"] = len(fse_jobs)
+            fse_jobs.append(d)
     return blocks, huf_jobs, fse_jobs
 
 
@@ -1232,4 +1236,7 @@ def _fused_exec_dispatch(
     if verify_checksum:
         with phase_timer("dec.fused_pull+verify"):
             decode_routes.verify_checksums(blob, plans, rows)
-    return rows if return_parts else b"".join(rows)
+    if return_parts:
+        return rows
+    with trace_range("dec.join"):
+        return b"".join(rows)

@@ -31,7 +31,7 @@ import os
 
 from . import archive
 from .codec.decompress import DCtx, StreamingFrameDecoder
-from .device import resolve_device
+from .device import resolve_device, trace_range
 from .errors import OffsetOutOfRangeError, ZeekstdError, corruption_detected
 from .native import loader
 from .native.frame import native_decompress_frame
@@ -217,44 +217,45 @@ class Decoder:
 
     def _load_frame(self, index: int) -> None:
         """Read + decode one frame from the source into the cache."""
-        start = self._st.frame_start_comp(index)
-        size = self._st.frame_size_comp(index)
-        self.src.set_offset(Start(start))
-        buf = b""
-        while len(buf) < size:
-            chunk = self.src.read(size - len(buf))
-            if not chunk:
-                raise ZeekstdError(f"unexpected EOF reading frame {index}")
-            buf += chunk
-        self._read_compressed += len(buf)
-        if self._backend == "tpu":
-            out, fend = archive.decompress_frame(
-                buf, prefix=self._prefix or b"", device=self._device
-            )
-        elif self._backend == "native":
-            out, fend = native_decompress_frame(
-                buf, self._st.frame_size_decomp(index) + 64, prefix=self._prefix or b""
-            )
-        else:
-            if self._prefix is not None:
-                self.dctx.ref_prefix(self._prefix)
-            out, fend = self.dctx.decompress_frame(buf)
-        if fend not in (None, len(buf)):
-            # A corrupted header (e.g. a cleared checksum flag) makes the
-            # frame consume fewer bytes than the seek table records — the
-            # canonical silent-corruption vector.
-            raise corruption_detected(
-                f"frame {index} consumed {fend} of {len(buf)} bytes"
-            )
-        expected = self._st.frame_size_decomp(index)
-        if len(out) != expected:
-            raise ZeekstdError(
-                f"frame {index} decoded to {len(out)} bytes, seek table says {expected}"
-            )
-        self._cur_frame = index
-        self._cur_data = out
+        with trace_range("dec.frame_load"):
+            start = self._st.frame_start_comp(index)
+            size = self._st.frame_size_comp(index)
+            self.src.set_offset(Start(start))
+            buf = b""
+            while len(buf) < size:
+                chunk = self.src.read(size - len(buf))
+                if not chunk:
+                    raise ZeekstdError(f"unexpected EOF reading frame {index}")
+                buf += chunk
+            self._read_compressed += len(buf)
+            if self._backend == "tpu":
+                out, fend = archive.decompress_frame(
+                    buf, prefix=self._prefix or b"", device=self._device
+                )
+            elif self._backend == "native":
+                out, fend = native_decompress_frame(
+                    buf, self._st.frame_size_decomp(index) + 64, prefix=self._prefix or b""
+                )
+            else:
+                if self._prefix is not None:
+                    self.dctx.ref_prefix(self._prefix)
+                out, fend = self.dctx.decompress_frame(buf)
+            if fend not in (None, len(buf)):
+                # A corrupted header (e.g. a cleared checksum flag) makes the
+                # frame consume fewer bytes than the seek table records — the
+                # canonical silent-corruption vector.
+                raise corruption_detected(
+                    f"frame {index} consumed {fend} of {len(buf)} bytes"
+                )
+            expected = self._st.frame_size_decomp(index)
+            if len(out) != expected:
+                raise ZeekstdError(
+                    f"frame {index} decoded to {len(out)} bytes, seek table says {expected}"
+                )
+            self._cur_frame = index
+            self._cur_data = out
 
-    # -- core decode -------------------------------------------------------
+        # -- core decode -------------------------------------------------------
 
     def decompress(self, size: int = -1) -> bytes:
         """Decode up to ``size`` bytes from the current offset, bounded by

@@ -7,6 +7,11 @@ package's accounting (``enc.parse_dispatch``, ``dec.fused_exec``, ...),
 so the two packages' breakdowns compare line by line. Timing starts off
 unless ``ZEEKSTD_TPU_TIMING`` is ``1`` (wall clock) or ``2`` (fenced) when
 the package is imported; ``set_timing`` switches it at any time.
+
+While a ``torch.profiler`` records, every phase is also a profiler range
+``zk.<phase>`` on the trace's clock, beside the device's events, and
+``trace_range`` adds ranges that are not phases (the loops of a phase, the
+streaming layer's calls). ``counters`` counts host work, always on.
 """
 
 from __future__ import annotations
@@ -17,6 +22,8 @@ import time
 
 import numpy as np
 import torch
+import torch.autograd.profiler as _profiler
+from torch._C._profiler import _RecordFunctionFast
 
 
 def resolve_device(device=None) -> torch.device:
@@ -66,16 +73,59 @@ def set_timing(mode: int) -> None:
     _FENCE = mode == 2
 
 
+# Host work counted on every call, by name (``reset_counters`` zeroes it):
+# plan.copied_bytes   bytes of the slices the decode planner's frame walk
+#                     takes of the buffer it is handed (``plan._plan_frame``)
+# plan.planned_bytes  compressed bytes of the frames it planned
+counters: dict[str, int] = {"plan.copied_bytes": 0, "plan.planned_bytes": 0}
+
+
+def reset_counters() -> None:
+    for k in counters:
+        counters[k] = 0
+
+
+def _enter_range(name: str):
+    """The profiler range ``zk.<name>``, entered. It records as a host
+    operation of the trace (category ``cpu_op``), as torch's own operators
+    do, so a reader of the trace names the time it covers by it."""
+    rf = _RecordFunctionFast("zk." + name)
+    rf.__enter__()
+    return rf
+
+
+class trace_range:
+    """``with trace_range("enc.host_decisions.huf"):`` is the profiler range
+    ``zk.<name>`` while a ``torch.profiler`` records; free otherwise. It
+    is not a phase: nothing reaches ``phase_records`` or stderr."""
+
+    __slots__ = ("name", "_rf")
+
+    def __init__(self, name: str):
+        self.name = name
+
+    def __enter__(self):
+        self._rf = _enter_range(self.name) if _profiler._is_profiler_enabled else None
+        return self
+
+    def __exit__(self, *exc):
+        if self._rf is not None:
+            self._rf.__exit__(*exc)
+        return False
+
+
 class phase_timer:
     """``with phase_timer("enc.parse_dispatch") as pt:`` records the phase
-    wall time in ``phase_records`` when timing is on; free otherwise.
+    wall time in ``phase_records`` when timing is on, and is the profiler
+    range ``zk.<name>`` while a ``torch.profiler`` records (as
+    ``trace_range``); free otherwise.
 
     With timing mode 2, ``pt.fence(*tensors)`` makes the phase end with
     ``torch.cuda.synchronize()`` when any of the tensors lies on the card,
     so asynchronous kernel time is charged to the phase that launched it
     (profiling only: it serialises the pipeline)."""
 
-    __slots__ = ("name", "t0", "_sync")
+    __slots__ = ("name", "t0", "_sync", "_rf")
 
     def __init__(self, name: str):
         self.name = name
@@ -89,6 +139,7 @@ class phase_timer:
         return self
 
     def __enter__(self):
+        self._rf = _enter_range(self.name) if _profiler._is_profiler_enabled else None
         if _TIMING:
             self.t0 = time.perf_counter()
         return self
@@ -100,4 +151,6 @@ class phase_timer:
             dt = time.perf_counter() - self.t0
             phase_records[self.name] = phase_records.get(self.name, 0.0) + dt
             print(f"[timing] {self.name}: {dt:.6f}s", file=sys.stderr, flush=True)
+        if self._rf is not None:
+            self._rf.__exit__(*exc)
         return False

@@ -50,7 +50,7 @@ from .constants import (
     DEFAULT_FRAME_SIZE,
     SEEKABLE_MAX_FRAME_SIZE,
 )
-from .device import resolve_device
+from .device import resolve_device, trace_range
 from .errors import NumberConversionError
 from .native import loader
 from .native.frame import NativeFrameEncoder, NativeStreamFrameEncoder
@@ -289,21 +289,22 @@ class RawEncoder:
         usable = len(buf) if final else (len(buf) // fsize) * fsize
         if usable == 0:
             return b""
-        chunk = bytes(buf[:usable])
-        del buf[:usable]
-        blob, st = archive.compress_archive(
-            chunk,
-            frame_size=fsize,
-            checksum=self.cctx.checksum,
-            level=self.cctx.level,
-            prefix=self._prefix or b"",
-            device=self._device,
-        )
-        for i in range(st.num_frames):
-            self._seek_table.log_frame(
-                st.frame_size_comp(i), st.frame_size_decomp(i)
+        with trace_range("enc.flush"):
+            chunk = bytes(buf[:usable])
+            del buf[:usable]
+            blob, st = archive.compress_archive(
+                chunk,
+                frame_size=fsize,
+                checksum=self.cctx.checksum,
+                level=self.cctx.level,
+                prefix=self._prefix or b"",
+                device=self._device,
             )
-        return blob
+            for i in range(st.num_frames):
+                self._seek_table.log_frame(
+                    st.frame_size_comp(i), st.frame_size_decomp(i)
+                )
+            return blob
 
     def _tpu_flush_compressed(self, final: bool) -> bytes:
         """Compressed frame-size policy on the TPU backend, two-pass
@@ -326,59 +327,60 @@ class RawEncoder:
         buf = self._tpu_buf
         if not buf:
             return b""
-        pol = self.options.frame_size_policy
-        threshold = min(pol.size, SEEKABLE_MAX_FRAME_SIZE)
-        step = max(threshold // 4, 1024)
-        chunk = bytes(buf)
-        steps = self._probe_steps
-        probe = list(steps)
-        if len(steps) * step < len(chunk):
-            _, probe_st = archive.compress_archive(
-                chunk[len(steps) * step :], frame_size=step, checksum=False,
-                level=self.cctx.level, device=self._device,
+        with trace_range("enc.flush"):
+            pol = self.options.frame_size_policy
+            threshold = min(pol.size, SEEKABLE_MAX_FRAME_SIZE)
+            step = max(threshold // 4, 1024)
+            chunk = bytes(buf)
+            steps = self._probe_steps
+            probe = list(steps)
+            if len(steps) * step < len(chunk):
+                _, probe_st = archive.compress_archive(
+                    chunk[len(steps) * step :], frame_size=step, checksum=False,
+                    level=self.cctx.level, device=self._device,
+                )
+                new = [(probe_st.frame_size_comp(i), probe_st.frame_size_decomp(i))
+                       for i in range(probe_st.num_frames)]
+                probe += new
+                steps += [e for e in new if e[1] == step]
+            cap = SEEKABLE_MAX_FRAME_SIZE
+            spans = []
+            start = 0
+            cum = 0
+            pos = 0
+            for c_size, d_size in probe:
+                cum += c_size
+                pos += d_size
+                while pos - start > cap:
+                    spans.append((start, cap))
+                    start += cap
+                    cum = 0
+                if cum >= threshold or pos - start >= cap:
+                    spans.append((start, pos - start))
+                    start = pos
+                    cum = 0
+            if final and start < len(chunk):
+                spans.append((start, len(chunk) - start))
+                start = len(chunk)
+            if not spans:
+                return b""
+            blob, st = archive.compress_archive(
+                chunk[: spans[-1][0] + spans[-1][1]],
+                checksum=self.cctx.checksum,
+                level=self.cctx.level,
+                frame_spans=spans,
+                device=self._device,
             )
-            new = [(probe_st.frame_size_comp(i), probe_st.frame_size_decomp(i))
-                   for i in range(probe_st.num_frames)]
-            probe += new
-            steps += [e for e in new if e[1] == step]
-        cap = SEEKABLE_MAX_FRAME_SIZE
-        spans = []
-        start = 0
-        cum = 0
-        pos = 0
-        for c_size, d_size in probe:
-            cum += c_size
-            pos += d_size
-            while pos - start > cap:
-                spans.append((start, cap))
-                start += cap
-                cum = 0
-            if cum >= threshold or pos - start >= cap:
-                spans.append((start, pos - start))
-                start = pos
-                cum = 0
-        if final and start < len(chunk):
-            spans.append((start, len(chunk) - start))
-            start = len(chunk)
-        if not spans:
-            return b""
-        blob, st = archive.compress_archive(
-            chunk[: spans[-1][0] + spans[-1][1]],
-            checksum=self.cctx.checksum,
-            level=self.cctx.level,
-            frame_spans=spans,
-            device=self._device,
-        )
-        del buf[:start]
-        if start % step:
-            steps.clear()
-        else:
-            del steps[: start // step]
-        for i in range(st.num_frames):
-            self._seek_table.log_frame(
-                st.frame_size_comp(i), st.frame_size_decomp(i)
-            )
-        return blob
+            del buf[:start]
+            if start % step:
+                steps.clear()
+            else:
+                del steps[: start // step]
+            for i in range(st.num_frames):
+                self._seek_table.log_frame(
+                    st.frame_size_comp(i), st.frame_size_decomp(i)
+                )
+            return blob
 
     def _tpu_compress(self, data) -> bytes:
         buf = getattr(self, "_tpu_buf", None)

@@ -16,6 +16,7 @@ from .codec import huffman as huf
 from .codec import literals as lit_mod
 from .codec import sequences as seq_mod
 from .constants import SEEKABLE_MAX_FRAME_SIZE, ZSTD_BLOCK_SIZE_MAX
+from .device import counters
 from .errors import checksum_wrong, corruption_detected
 from .native import loader
 
@@ -243,9 +244,13 @@ def _plan_frame(frame: bytes, pos: int = 0):
     entropy-table descriptions into a device-ready plan (no symbol loops).
     Returns (hdr, plan, end_pos) with end_pos at the content checksum
     position (if any). Plan entries: ("raw", bytes) | ("rle", byte, n) |
-    ("cmp", desc)."""
+    ("cmp", desc). Adds the lengths of the slices it takes of ``frame`` to
+    ``counters["plan.copied_bytes"]`` and the frame's compressed size to
+    ``counters["plan.planned_bytes"]``."""
+    n = len(frame)
     hdr = frame_mod.parse_frame_header(frame[pos:])
     fpos = pos + hdr.header_size
+    copied = n - pos
 
     # --- host: walk blocks, parse headers + tables -----------------------
     plan = []  # per block: ("raw", bytes) | ("rle", byte, n) | ("cmp", desc)
@@ -253,16 +258,20 @@ def _plan_frame(frame: bytes, pos: int = 0):
     _dec_state = {}  # per-frame repeat-mode FSE tables
 
     while True:
+        copied += n - fpos
         last, btype, bsize, consumed = frame_mod.parse_block_header(frame[fpos:])
         fpos += consumed
         if btype == frame_mod.BLOCK_RAW:
-            plan.append(("raw", frame[fpos : fpos + bsize]))
+            raw = frame[fpos : fpos + bsize]
+            copied += len(raw)
+            plan.append(("raw", raw))
             fpos += bsize
         elif btype == frame_mod.BLOCK_RLE:
             plan.append(("rle", frame[fpos], bsize))
             fpos += 1
         else:
             block = frame[fpos : fpos + bsize]
+            copied += len(block)
             fpos += bsize
             sec = lit_mod.parse_literals_header(block)
             bpos = sec.header_size
@@ -322,4 +331,6 @@ def _plan_frame(frame: bytes, pos: int = 0):
         if last:
             break
 
+    counters["plan.copied_bytes"] += copied
+    counters["plan.planned_bytes"] += fpos + (4 if hdr.has_checksum else 0) - pos
     return hdr, plan, fpos
