@@ -111,10 +111,14 @@ def test_silent_without_profiler_or_timing(timing_mode, capfd):
 
 def test_plan_counters_count_planned_and_sliced_bytes():
     """``planned_bytes`` is the frames' compressed bytes; ``copied_bytes``
-    at least that (every block is sliced once, and each header slice holds
-    the rest of the buffer); a second call doubles both; a reset zeroes."""
+    at least that: every block is sliced once, with its 3-byte header, and
+    each frame's header slice is 18 bytes, at least its header and the
+    content checksum, which is not sliced; a second call doubles both; a
+    reset zeroes."""
     blob, st = _roundtrip()
     frames = sum(st.frame_size_comp(i) for i in range(st.num_frames))
+    headers = [frame_mod.parse_frame_header(blob[st.frame_start_comp(i):])
+               for i in range(st.num_frames)]
     assert st.num_frames == 4
     device.reset_counters()
     assert device.counters == {"plan.copied_bytes": 0, "plan.planned_bytes": 0}
@@ -122,6 +126,8 @@ def test_plan_counters_count_planned_and_sliced_bytes():
     once = dict(device.counters)
     assert once["plan.planned_bytes"] == frames
     assert once["plan.copied_bytes"] >= frames
+    assert once["plan.copied_bytes"] == frames + sum(
+        18 - h.header_size - 4 * h.has_checksum for h in headers)
     archive.decompress_archive(blob, st, device="cpu")
     assert device.counters == {k: 2 * v for k, v in once.items()}
     device.reset_counters()
@@ -129,9 +135,9 @@ def test_plan_counters_count_planned_and_sliced_bytes():
 
 
 def test_plan_counters_one_block_frame():
-    """A frame of one block, planned alone: the frame header's slice is the
-    whole buffer, the block header's all of it past the frame header, the
-    block's its size."""
+    """A frame of one block, planned alone: the frame header's slice is
+    its 18 bytes at most, the block header's its 3 bytes, the block's its
+    size."""
     blob, st = archive.compress_archive(DATA[:4096], frame_size=FRAME, level=1,
                                         checksum=True, device="cpu")
     n, h = len(blob), frame_mod.parse_frame_header(blob).header_size
@@ -139,6 +145,6 @@ def test_plan_counters_one_block_frame():
     device.reset_counters()
     out, end = archive.decompress_frame(blob, device="cpu")
     assert out == DATA[:4096] and end == n
-    assert device.counters == {"plan.copied_bytes": n + (n - h) + block_size,
+    assert device.counters == {"plan.copied_bytes": min(18, n) + 3 + block_size,
                                "plan.planned_bytes": n}
     device.reset_counters()

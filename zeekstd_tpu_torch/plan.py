@@ -239,18 +239,32 @@ def _words_from_bytes(payload: bytes, word_bound: int):
     return arr, start_bits
 
 
+# The longest frame header (zstd's ZSTD_FRAMEHEADERSIZE_MAX: magic,
+# descriptor, window byte, 4-byte dictionary id, 8-byte content size) and
+# a block header.
+FRAME_HEADER_MAX = 18
+BLOCK_HEADER = 3
+
+
 def _plan_frame(frame: bytes, pos: int = 0):
     """Host side of one frame's decode: walk block/section headers and
     entropy-table descriptions into a device-ready plan (no symbol loops).
     Returns (hdr, plan, end_pos) with end_pos at the content checksum
     position (if any). Plan entries: ("raw", bytes) | ("rle", byte, n) |
-    ("cmp", desc). Adds the lengths of the slices it takes of ``frame`` to
+    ("cmp", desc).
+
+    The walk reads ``frame`` at offsets: each slice it takes is no longer
+    than what it parses there (the frame header's ``FRAME_HEADER_MAX``
+    bytes, a block header's 3, a raw or compressed block's size; an RLE
+    block's byte is indexed), each clamped to the end of ``frame``, so
+    planning one frame of a large buffer costs that frame alone. Adds the
+    lengths of those slices to
     ``counters["plan.copied_bytes"]`` and the frame's compressed size to
     ``counters["plan.planned_bytes"]``."""
-    n = len(frame)
-    hdr = frame_mod.parse_frame_header(frame[pos:])
+    head = frame[pos : pos + FRAME_HEADER_MAX]
+    hdr = frame_mod.parse_frame_header(head)
     fpos = pos + hdr.header_size
-    copied = n - pos
+    copied = len(head)
 
     # --- host: walk blocks, parse headers + tables -----------------------
     plan = []  # per block: ("raw", bytes) | ("rle", byte, n) | ("cmp", desc)
@@ -258,8 +272,9 @@ def _plan_frame(frame: bytes, pos: int = 0):
     _dec_state = {}  # per-frame repeat-mode FSE tables
 
     while True:
-        copied += n - fpos
-        last, btype, bsize, consumed = frame_mod.parse_block_header(frame[fpos:])
+        bhead = frame[fpos : fpos + BLOCK_HEADER]
+        copied += len(bhead)
+        last, btype, bsize, consumed = frame_mod.parse_block_header(bhead)
         fpos += consumed
         if btype == frame_mod.BLOCK_RAW:
             raw = frame[fpos : fpos + bsize]
