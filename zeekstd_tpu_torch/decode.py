@@ -31,7 +31,7 @@ import os
 
 from . import archive
 from .codec.decompress import DCtx, StreamingFrameDecoder
-from .device import resolve_device, trace_range
+from .device import counters, resolve_device, trace_range
 from .errors import OffsetOutOfRangeError, ZeekstdError, corruption_detected
 from .native import loader
 from .native.frame import native_decompress_frame
@@ -252,6 +252,7 @@ class Decoder:
                 raise ZeekstdError(
                     f"frame {index} decoded to {len(out)} bytes, seek table says {expected}"
                 )
+            counters["dec.frame_load_bytes"] += len(out)
             self._cur_frame = index
             self._cur_data = out
 
@@ -259,11 +260,20 @@ class Decoder:
 
     def decompress(self, size: int = -1) -> bytes:
         """Decode up to ``size`` bytes from the current offset, bounded by
-        the offset limit (reference loop: lib/src/decode.rs:201-270)."""
+        the offset limit (reference loop: lib/src/decode.rs:201-270). Each
+        call is the profiler range ``zk.dec.read`` and adds to the
+        ``dec.*`` counters of ``device.counters``."""
+        with trace_range("dec.read"):
+            out = self._decompress(size)
+        counters["dec.read_bytes"] += len(out)
+        return out
+
+    def _decompress(self, size: int) -> bytes:
         if size is None or size < 0:
             size = self.offset_limit - self.offset
         out = []
         remaining = min(size, self.offset_limit - self.offset)
+        visited = None  # a large frame may serve one read in several pieces
         while remaining > 0:
             if self._st.num_frames == 0:
                 break
@@ -272,8 +282,12 @@ class Decoder:
             f_end = self._st.frame_end_decomp(index)
             if self.offset >= f_end:
                 break  # at archive end
+            first = index != visited
+            if first:
+                visited = index
+                counters["dec.frame_visits"] += 1
             if self._st.frame_size_decomp(index) > FRAME_CACHE_MAX:
-                chunk = self._stream_read(index, f_start, f_end, remaining)
+                chunk = self._stream_read(index, f_start, f_end, remaining, first)
                 if not chunk:
                     break
                 out.append(chunk)
@@ -282,6 +296,8 @@ class Decoder:
                 continue
             if self._cur_frame != index:
                 self._load_frame(index)
+            else:
+                counters["dec.frame_hits"] += 1
             lo = self.offset - f_start
             take = min(remaining, f_end - self.offset)
             out.append(self._cur_data[lo : lo + take])
@@ -289,10 +305,12 @@ class Decoder:
             remaining -= take
         return b"".join(out)
 
-    def _stream_read(self, index: int, f_start: int, f_end: int, remaining: int) -> bytes:
+    def _stream_read(self, index: int, f_start: int, f_end: int, remaining: int,
+                     first: bool) -> bytes:
         """Serve bytes from a large frame with O(window) memory: decode
         block-by-block, discarding output before the requested offset (the
-        reference's dummy-decode, lib/src/decode.rs:228-232)."""
+        reference's dummy-decode, lib/src/decode.rs:228-232). ``first``: this
+        is the read's first piece of the frame, a hit if the stream is kept."""
         rel = self.offset - f_start
         if self._stream_frame != index or rel < self._stream_tail_pos:
             comp_start = self._st.frame_start_comp(index)
@@ -309,6 +327,8 @@ class Decoder:
             self._stream_frame = index
             self._stream_tail = bytearray()
             self._stream_tail_pos = 0
+        elif first:
+            counters["dec.frame_hits"] += 1
         tail = self._stream_tail
         while self._stream_tail_pos + len(tail) <= rel:
             blk = self._stream.next_block()
@@ -317,6 +337,7 @@ class Decoder:
                     f"frame {index} exhausted before offset; decoded size "
                     "disagrees with the seek table"
                 )
+            counters["dec.frame_load_bytes"] += len(blk)
             # Dummy-decode: drop everything before the target offset.
             self._stream_tail_pos += len(tail)
             tail = self._stream_tail = bytearray(blk)
@@ -330,6 +351,7 @@ class Decoder:
             blk = self._stream.next_block()
             if blk is None:
                 return b""
+            counters["dec.frame_load_bytes"] += len(blk)
             tail += blk
             take = min(remaining, f_end - self.offset, len(tail) - lo)
         chunk = bytes(tail[lo : lo + take])
