@@ -51,8 +51,8 @@ from .codec import sequences as seq_mod
 from .codec.compress import compress_frame
 from .codec.seq_encode import _choose_table, write_num_sequences
 from .constants import ZSTD_BLOCK_SIZE_MAX
-from .device import from_reference_arrays, phase_timer, resolve_device, trace_range
-from .native import loader
+from .device import counters, from_reference_arrays, phase_timer, resolve_device, trace_range
+from .native import fse_choice, loader
 from .ops import assemble, entropy
 from .ops import decode_kernel as dk
 from .ops import fse_kernel as fk
@@ -425,28 +425,36 @@ def _host_jobs(
 
     # Sequence table choices from code histograms. Passing the previous
     # block's chosen table enables Repeat_Mode; tbl_id/dep_tbl_id let
-    # _plan_block verify the emitted chain before honoring a repeat.
+    # _plan_block verify the emitted chain before honoring a repeat. The
+    # native chooser makes every block's choices in one call; a block it
+    # leaves (None) takes _choose_table, as every block does without it.
     fse_jobs = []
     prev_cat = {}  # (frame, cat) -> (tbl_id, enc_table)
     cat_ids = iter(range(1, 1 << 30))
+    hists = (ll_hist, of_hist, ml_hist)
     with trace_range("enc.host_decisions.fse_tables"):
-        for d in blocks:
-            if d["nseq"] == 0:
-                continue
+        seq_blocks = [d for d in blocks if d["nseq"] > 0]
+        fi = np.array([d["frame"] for d in seq_blocks], np.int64)
+        bi = np.array([d["block"] for d in seq_blocks], np.int64)
+        native = fse_choice.choose_tables(fi, *(h[fi, bi] for h in hists))
+        counters["enc.fse_choices"] += 3 * len(seq_blocks)
+        counters["enc.fse_choices_native"] += 3 * sum(row is not None for row in native)
+        for d, row in zip(seq_blocks, native):
             f, b = d["frame"], d["block"]
             choices = {}
             d["tbl_id"] = {}
             d["dep_tbl_id"] = {}
-            for cat, hist, defaults in (
-                ("ll", ll_hist[f, b], (seq_mod.LL_DEFAULT_NORM, seq_mod.LL_DEFAULT_LOG, 35, 9)),
-                ("of", of_hist[f, b], (seq_mod.OF_DEFAULT_NORM, seq_mod.OF_DEFAULT_LOG, 31, 8)),
-                ("ml", ml_hist[f, b], (seq_mod.ML_DEFAULT_NORM, seq_mod.ML_DEFAULT_LOG, 52, 9)),
-            ):
+            for c, (cat, norm, log, max_code, max_log) in enumerate(fse_choice.CATS):
                 prev = prev_cat.get((f, cat))
-                choice = _choose_table(
-                    None, cat, *defaults[:2], defaults[2], defaults[3],
-                    prev_table=prev[1] if prev else None, hist=hist,
-                )
+                if row is None:
+                    choice = _choose_table(
+                        None, cat, norm, log, max_code, max_log,
+                        prev_table=prev[1] if prev else None, hist=hists[c][f, b],
+                    )
+                elif row[c][0] == seq_mod.MODE_REPEAT:
+                    choice = (seq_mod.MODE_REPEAT, prev[1], b"", row[c][3])
+                else:
+                    choice = row[c]
                 choices[cat] = choice
                 if choice[0] == seq_mod.MODE_REPEAT:
                     d["tbl_id"][cat] = prev[0]
