@@ -26,6 +26,7 @@ from zeekstd_tpu_torch.errors import ZeekstdError
 from zeekstd_tpu_torch.seek_table import Format
 
 from .oracle import zstd_decompress
+from .torch_threads import two_torch_threads  # noqa: F401
 
 FRAME = 32 << 10
 

@@ -49,6 +49,7 @@ from zeekstd_tpu_torch.parallel import make_mesh, parallel_compress  # noqa: E40
 from . import match_edges  # noqa: E402
 from .block_cases import BLOCKS, FRAME, INPUTS, LEVELS, word_text  # noqa: E402
 from .oracle import zstd_decompress  # noqa: E402
+from .torch_threads import two_torch_threads  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CASES = [(b, name, lv) for b in BLOCKS for name in INPUTS for lv in LEVELS]
@@ -92,16 +93,6 @@ def _children(runs, tmp_path):
         stdout, stderr = proc.communicate(timeout=600)
         out[name] = (proc.returncode, stdout, stderr, path)
     return out
-
-
-@pytest.fixture(scope="module", autouse=True)
-def few_threads():
-    """The plain versions run small tensors; 8 torch threads on a host
-    with a smaller CPU share made them a hundredfold slower than 2."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(min(n, 2))
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")

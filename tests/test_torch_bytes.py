@@ -14,6 +14,7 @@ from zeekstd_tpu.ops.pallas_kernels import byte_histogram_pallas, table_lookup_p
 from zeekstd_tpu_torch.ops import byte_kernels as bk
 
 from . import byte_cases
+from .torch_threads import two_torch_threads  # noqa: F401
 
 
 @pytest.mark.parametrize("case", ["seed0-1block", "seed1-4blocks", "skewed"])

@@ -29,6 +29,8 @@ jax = pytest.importorskip("jax")
 from zeekstd_tpu.cli import main as ref_main
 from zeekstd_tpu_torch.cli import main
 
+from .torch_threads import two_torch_threads  # noqa: F401
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 

@@ -20,11 +20,12 @@ jax = pytest.importorskip("jax")
 
 from zeekstd_tpu.ops import decode_kernel as ref_dk
 from zeekstd_tpu.ops import ring_kernel as ref_rk
-from zeekstd_tpu_torch import archive
+from zeekstd_tpu_torch import archive, decode_routes
 from zeekstd_tpu_torch.ops import decode_kernel as dk
 from zeekstd_tpu_torch.ops import ring_kernel as rk
 
 from .oracle import zstd_compress
+from .torch_threads import two_torch_threads  # noqa: F401
 
 CASES = ("own", "zstd1", "zstd3", "zstd6")
 
@@ -76,7 +77,7 @@ def cases():
         blob = _blob(case)
         a, k = _capture(blob, ring=True)
         consts, meta, words, tables, litw = (t.numpy() for t in a)
-        kern = ref_rk.get_ring_kernel(words.shape[1], archive.LITB, k["OUTB"],
+        kern = ref_rk.get_ring_kernel(words.shape[1], decode_routes.LITB, k["OUTB"],
                                       meta.shape[0], litw.shape[0], litw.shape[1],
                                       interpret=True)
         ring_ref = tuple(np.asarray(x) for x in kern(consts, meta, words, tables, litw))
@@ -132,11 +133,11 @@ def test_route_rule_follows_declared_windows(monkeypatch):
     small = (SimpleNamespace(window_size=1 << 19), None, None)
     wide = (SimpleNamespace(window_size=1 << 20), None, None)
     monkeypatch.delenv("ZEEKSTD_TPU_RING", raising=False)
-    assert archive.use_ring_route([small, small], 1 << 20)
-    assert not archive.use_ring_route([small, wide], 1 << 20)
-    assert not archive.use_ring_route([small], (1 << 27) + 1)
+    assert decode_routes.use_ring_route([small, small], 1 << 20)
+    assert not decode_routes.use_ring_route([small, wide], 1 << 20)
+    assert not decode_routes.use_ring_route([small], (1 << 27) + 1)
     monkeypatch.setenv("ZEEKSTD_TPU_RING", "0")
-    assert not archive.use_ring_route([small], 1 << 20)
+    assert not decode_routes.use_ring_route([small], 1 << 20)
 
 
 def test_rle_and_literal_records_plain():
@@ -149,6 +150,6 @@ def test_rle_and_literal_records_plain():
         outs, mo = dk.decode_plain(consts, torch.from_numpy(meta),
                                    torch.zeros((2, 16), dtype=torch.int32),
                                    torch.zeros((1, 512), dtype=torch.int32), pools,
-                                   4096, ring=ring, LITB=archive.LITB, LROWS=2048)
+                                   4096, ring=ring, LITB=decode_routes.LITB, LROWS=2048)
         assert bytes(outs[0][:8]) == b"AAAAAxyz"
         assert mo[0, :3].tolist() == [8, 0, 3]

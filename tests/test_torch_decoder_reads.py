@@ -14,6 +14,7 @@ import zeekstd_tpu_torch as zt
 from zeekstd_tpu_torch import decode, device
 
 from .block_cases import word_text
+from .torch_threads import two_torch_threads  # noqa: F401
 
 FRAME = 65536
 LAST = 12345  # the last frame's bytes

@@ -19,6 +19,8 @@ import torch
 
 from zeekstd_tpu_torch.ops import exec_kernel as ek
 
+from .torch_threads import two_torch_threads  # noqa: F401
+
 LITB = 2048
 
 

@@ -37,17 +37,7 @@ from zeekstd_tpu_torch.errors import ZeekstdError
 
 from .frame_cases import CASES, structured_data, text_data
 from .oracle import zstd_decompress
-
-
-@pytest.fixture(scope="module", autouse=True)
-def few_threads():
-    """The plain versions run one frame of small tensors; on a host whose
-    CPU share is smaller than its core count, 8 torch threads made them a
-    hundredfold slower than 2."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(min(n, 2))
-    yield
-    torch.set_num_threads(n)
+from .torch_threads import two_torch_threads  # noqa: F401
 
 
 @pytest.fixture(scope="module")

@@ -17,6 +17,8 @@ from zeekstd_tpu.ops import fse_kernel as ref_fk
 from zeekstd_tpu_torch import archive
 from zeekstd_tpu_torch.ops import fse_kernel as fk
 
+from .torch_threads import two_torch_threads  # noqa: F401
+
 
 def _data():
     rng = np.random.default_rng(33)

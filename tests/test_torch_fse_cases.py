@@ -19,6 +19,7 @@ from zeekstd_tpu.ops import fse_kernel as ref_fk
 from zeekstd_tpu_torch.ops import fse_kernel as fk
 
 from . import fse_enc_cases
+from .torch_threads import two_torch_threads  # noqa: F401
 
 
 @pytest.mark.parametrize("name", fse_enc_cases.CASES)

@@ -10,13 +10,14 @@ library and with the Python loop forced.
 
 import numpy as np
 import pytest
-import torch
 
-from zeekstd_tpu_torch import _build, archive, device
+from zeekstd_tpu_torch import _build, archive
 from zeekstd_tpu_torch.codec import sequences as seq_mod
 from zeekstd_tpu_torch.codec.fse import normalize_counts, optimal_table_log
 from zeekstd_tpu_torch.codec.seq_encode import _choose_table
 from zeekstd_tpu_torch.native import fse_choice as fc
+
+from .torch_threads import two_torch_threads  # noqa: F401
 
 CATS = fc.CATS  # (name, predefined norm, predefined log, max code, max log)
 WIDTH = [mc + 1 for *_r, mc, _ml in CATS]
@@ -244,7 +245,6 @@ def _captured(gen, level, monkeypatch):
     ("dickens_like", 1), ("hdfs_v1_like", 1), ("hdfs_v1_like", 3),
 ])
 def test_generator_histograms(gen_name, level, monkeypatch):
-    torch.set_num_threads(1)
     from portbench.data import dickens_like, hdfs_v1_like
 
     gen = {"dickens_like": dickens_like, "hdfs_v1_like": hdfs_v1_like}[gen_name]
@@ -265,22 +265,36 @@ def _archive_data():
 @pytest.mark.parametrize("level", [1, 3])
 @pytest.mark.parametrize("checksum", [False, True])
 def test_archives_equal_with_the_python_loop(level, checksum, monkeypatch):
-    torch.set_num_threads(1)
     data = _archive_data()
+    blocks, py_calls = [], []
+    choose_tables, choose_table = fc.choose_tables, archive._choose_table
+
+    def tables_spy(frames, *hists):
+        blocks.append(len(frames))
+        return choose_tables(frames, *hists)
+
+    def table_spy(*args, **kwargs):
+        py_calls.append(args[1])
+        return choose_table(*args, **kwargs)
+
+    monkeypatch.setattr(fc, "choose_tables", tables_spy)
+    monkeypatch.setattr(archive, "_choose_table", table_spy)
 
     def encode():
-        device.reset_counters()
+        """The archive, its sequence blocks and its ``_choose_table`` calls."""
+        blocks.clear()
+        py_calls.clear()
         out = archive.compress_archive(data, frame_size=32 << 10, level=level,
                                        checksum=checksum, device="cpu")
-        return out, dict(device.counters)
+        return out, sum(blocks), len(py_calls)
 
-    (blob, st), n = encode()
-    assert n["enc.fse_choices"] > 0
-    assert n["enc.fse_choices_native"] == n["enc.fse_choices"]
+    (blob, st), n_blocks, n_py = encode()
+    assert n_blocks > 0
+    assert n_py == 0
     monkeypatch.setattr(fc, "_get_lib", lambda: None)
-    (blob_py, st_py), n_py = encode()
-    assert n_py["enc.fse_choices"] == n["enc.fse_choices"]
-    assert n_py["enc.fse_choices_native"] == 0
+    (blob_py, st_py), n_blocks_py, n_py_forced = encode()
+    assert n_blocks_py == n_blocks
+    assert n_py_forced == 3 * n_blocks
     assert blob == blob_py
     assert st.to_bytes() == st_py.to_bytes()
     assert archive.decompress_archive(blob, st, device="cpu") == data

@@ -33,6 +33,7 @@ from zeekstd_tpu_torch.ops import entropy, huffman_spec
 
 from . import fse_cases
 from .oracle import zstd_compress
+from .torch_threads import two_torch_threads  # noqa: F401
 
 
 def _text(n, seed=3):

@@ -31,6 +31,7 @@ from zeekstd_tpu_torch.codec.match import Sequence
 from zeekstd_tpu_torch.codec.seq_encode import encode_sequences_section
 
 from .oracle import zstd_compress, zstd_decompress
+from .torch_threads import two_torch_threads  # noqa: F401
 
 MAGIC = (0xFD2FB528).to_bytes(4, "little")
 REASONS = {

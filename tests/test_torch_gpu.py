@@ -32,6 +32,7 @@ from zeekstd_tpu_torch.ops import ring_kernel as rk
 from . import (block_cases, byte_cases, frame_cases, fse_cases, fse_enc_cases, launch_cases,
                match_edges, ring_cases)
 from . import test_torch_exec as exec_cases
+from .torch_threads import two_torch_threads  # noqa: F401
 
 pytestmark = pytest.mark.gpu
 

@@ -36,6 +36,7 @@ from zeekstd_tpu_torch.ops import assemble, bitpack, entropy
 from zeekstd_tpu_torch.plan import _plan_frame
 
 from .oracle import zstd_compress
+from .torch_threads import two_torch_threads  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(ROOT, "zeekstd_tpu_torch")

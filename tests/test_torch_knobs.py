@@ -56,6 +56,7 @@ from zeekstd_tpu_torch.parallel import make_mesh, parallel_compress  # noqa: E40
 
 from .block_cases import mixed_input  # noqa: E402
 from .oracle import zstd_decompress  # noqa: E402
+from .torch_threads import two_torch_threads  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 KIB = 1 << 10
@@ -88,16 +89,6 @@ def _env(**values):
             else:
                 mp.setenv(name, value)
         yield
-
-
-@pytest.fixture(scope="module", autouse=True)
-def few_threads():
-    """The plain versions run small tensors; 8 torch threads on a host
-    with a smaller CPU share made them a hundredfold slower than 2."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(min(n, 2))
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")

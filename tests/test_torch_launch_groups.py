@@ -27,6 +27,7 @@ from zeekstd_tpu_torch.errors import ZeekstdError
 
 from . import launch_cases
 from .launch_cases import ROUTES, watch_groups
+from .torch_threads import two_torch_threads  # noqa: F401
 
 
 def _cost(n, bound, lits, extra):

@@ -20,6 +20,7 @@ from zeekstd_tpu_torch import archive
 from zeekstd_tpu_torch.seek_table import Format
 
 from .oracle import zstd_decompress
+from .torch_threads import two_torch_threads  # noqa: F401
 
 FRAME = 32 << 10
 

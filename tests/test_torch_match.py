@@ -18,6 +18,8 @@ from zeekstd_tpu.ops import match_kernel as ref_mk
 from zeekstd_tpu_torch.ops import fse_kernel as fk
 from zeekstd_tpu_torch.ops import match_kernel as mk
 
+from .torch_threads import two_torch_threads  # noqa: F401
+
 BLK = 32 << 10
 SBd = BLK // 4
 FR = 64 << 10

@@ -20,6 +20,7 @@ from zeekstd_tpu.ops import match_kernel as ref_mk
 from zeekstd_tpu_torch.ops import match_kernel as mk
 
 from . import match_edges
+from .torch_threads import two_torch_threads  # noqa: F401
 
 CASES = [n for n in match_edges.NAMES if n != "window"]
 N = 64 << 10

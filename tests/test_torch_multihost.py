@@ -21,7 +21,6 @@ import sys
 
 import numpy as np
 import pytest
-import torch
 
 jax = pytest.importorskip("jax")
 
@@ -38,6 +37,8 @@ from zeekstd_tpu_torch.parallel import (  # noqa: E402
 )
 from zeekstd_tpu_torch.parallel.pipeline import make_mesh, parallel_compress  # noqa: E402
 
+from .torch_threads import two_torch_threads  # noqa: F401
+
 WORKER = os.path.join(os.path.dirname(os.path.abspath(__file__)), "torch_mh_worker.py")
 TIMEOUT_S = 180
 
@@ -49,14 +50,6 @@ def _corpus(n):
     while len(out) < n:
         out += words[int(rng.integers(0, 50))]
     return bytes(out[:n])
-
-
-@pytest.fixture(scope="module", autouse=True)
-def few_threads():
-    n = torch.get_num_threads()
-    torch.set_num_threads(min(n, 2))
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")

@@ -42,6 +42,7 @@ from zeekstd_tpu_torch.xxhash64 import XXH64
 from .frame_cases import structured_data as structured
 from .oracle import zstd_compress, zstd_decompress
 from .test_decompress import random_data, structured_data, text_data
+from .torch_threads import two_torch_threads  # noqa: F401
 
 CASES = [
     ("text", text_data(100_000)),

@@ -49,22 +49,13 @@ from zeekstd_tpu_torch.parallel.pipeline import DECODE_FALLBACKS  # noqa: E402
 
 from .frame_cases import structured_data, text_data  # noqa: E402
 from .oracle import zstd_compress, zstd_decompress  # noqa: E402
+from .torch_threads import two_torch_threads  # noqa: F401
 
 FRAME = 8 << 10  # 15 frames of the 120,000-byte input: two per shard, one on the last
 LEVELS = (1, 3, 9)
 DATA = text_data(60_000) + structured_data(60_000)
 QUERIES = [0, 16_384, 40_000, 119_999]
 RANGES = [(5000, 9000), (30_000, 70_000)]
-
-
-@pytest.fixture(scope="module", autouse=True)
-def few_threads():
-    """The plain versions run small tensors; 8 torch threads on a host
-    with a smaller CPU share made them a hundredfold slower than 2."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(min(n, 2))
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")

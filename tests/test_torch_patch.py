@@ -25,6 +25,7 @@ from zeekstd_tpu_torch.codec.compress import compress_frame
 from zeekstd_tpu_torch.seek_table import Format
 
 from .oracle import zstd_decompress
+from .torch_threads import two_torch_threads  # noqa: F401
 
 FRAME = 32 << 10
 

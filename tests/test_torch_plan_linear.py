@@ -25,6 +25,7 @@ from zeekstd_tpu_torch import archive, device, plan
 from zeekstd_tpu_torch.codec import frame as frame_mod
 
 from .block_cases import word_text
+from .torch_threads import two_torch_threads  # noqa: F401
 
 DATA = word_text(256 << 10)
 SMALL = 8 << 10  # one block a frame

@@ -23,6 +23,8 @@ from zeekstd_tpu.ops import pallas_kernels as ref_pk
 from zeekstd_tpu_torch.ops import match_tpu as mt
 from zeekstd_tpu_torch.ops import reach_kernel as rk
 
+from .torch_threads import two_torch_threads  # noqa: F401
+
 BLOCK = 32 << 10
 
 

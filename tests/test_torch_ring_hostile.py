@@ -31,11 +31,12 @@ import jax.numpy as jnp
 from jax._src.pallas import primitives as pallas_primitives
 
 from zeekstd_tpu.ops import ring_kernel as ref_rk
-from zeekstd_tpu_torch import archive
+from zeekstd_tpu_torch import archive, decode_routes
 from zeekstd_tpu_torch.ops import ring_kernel as rk
 
 from . import ring_cases
 from .test_torch_wide_hostile import FRAME, _data, _mutate
+from .torch_threads import two_torch_threads  # noqa: F401
 
 
 @pytest.fixture(scope="module")
@@ -74,7 +75,7 @@ def _ref_ring(monkeypatch, words, OUTB, meta, litw):
     monkeypatch.setattr(pallas_primitives, "uninitialized_value", zero_fill)
     key = (words.shape[1], OUTB, meta.shape[0], litw.shape[0], litw.shape[1])
     if key not in _kernels:
-        _kernels[key] = ref_rk._build(key[0], archive.LITB, *key[1:], interpret=True)
+        _kernels[key] = ref_rk._build(key[0], decode_routes.LITB, *key[1:], interpret=True)
     return _kernels[key]
 
 

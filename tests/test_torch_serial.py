@@ -37,6 +37,7 @@ from zeekstd_tpu_torch.errors import ZeekstdError
 from zeekstd_tpu_torch.seek_table import SeekTable
 
 from .oracle import zstd_compress
+from .torch_threads import two_torch_threads  # noqa: F401
 
 ROUTES = ["serial", "doubling"]
 
@@ -224,7 +225,7 @@ def test_exec_mode_values(monkeypatch):
     for value, mode in (("", "fused"), ("fused", "fused"), ("serial", "serial"),
                         ("doubling", "doubling"), ("other", "fused")):
         monkeypatch.setenv("ZEEKSTD_TPU_EXEC", value)
-        assert archive.exec_mode() == mode
+        assert decode_routes.exec_mode() == mode
 
 
 @pytest.mark.parametrize("route", ["doubling"], indirect=True)

@@ -39,6 +39,7 @@ from zeekstd_tpu_torch import encode as enc_mod
 from zeekstd_tpu_torch.errors import ZeekstdError
 
 from .oracle import zstd_decompress
+from .torch_threads import two_torch_threads  # noqa: F401
 
 # The reference's streaming tests take their own source as input.
 with open(os.path.join(os.path.dirname(__file__), "..", "SURVEY.md"), "rb") as _fh:

@@ -17,6 +17,7 @@ import zeekstd_tpu_torch as zt  # noqa: E402
 from zeekstd_tpu_torch import archive, codec  # noqa: E402
 
 from .block_cases import long_run, word_text  # noqa: E402
+from .torch_threads import two_torch_threads  # noqa: F401
 
 PAIR = ("CCtx", "DCtx", "compress_frame", "decompress_frame")
 DATA = {"empty": b"", "short": b"hello, frame", "text": word_text(40_000),

@@ -18,8 +18,10 @@ import torch
 jax = pytest.importorskip("jax")
 
 from zeekstd_tpu.ops import decode_kernel as ref_dk
-from zeekstd_tpu_torch import archive
+from zeekstd_tpu_torch import archive, decode_routes
 from zeekstd_tpu_torch.ops import decode_kernel as dk
+
+from .torch_threads import two_torch_threads  # noqa: F401
 
 FRAME = 8 << 10
 
@@ -105,7 +107,7 @@ def _hand_built():
     lits[:, :2, :] = rng.integers(0, 256, (2, 2, 128))
     consts = dk.make_consts()
     return [consts, meta, words, tabs.astype(np.int32), lits], dict(OUTB=8192,
-                                                                    LITB=archive.LITB)
+                                                                    LITB=decode_routes.LITB)
 
 
 @pytest.mark.parametrize("case", ["counts", "bits", "rows", "match_at_0"])

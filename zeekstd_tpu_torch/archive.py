@@ -1,5 +1,5 @@
-"""Seekable archive encode (levels 1-19, patch mode) and fused decode on
-the CUDA card.
+"""Seekable archive encode (levels 1-19, patch mode) on the CUDA card, and
+the decode entry points.
 
 Port of the archive routes of ``zeekstd_tpu/tpu_archive.py``.
 
@@ -14,25 +14,11 @@ Encode (``compress_archive``):
   host    byte-exact layout of every frame (run segments)
   device  assembly of the compressed frame rows
 
-Decode (``decompress_archive``, ``decode_frames``, ``decompress_frame``),
-on the route ``ZEEKSTD_TPU_EXEC`` selects (``exec_mode``):
-- unset or ``fused`` (the default; ``decode_frames`` always):
-  host    plan every frame, decode the Huffman literal streams (native)
-  device  the fused decoder decodes every FSE stream and executes every
-          sequence, one launch per group of frames under
-          ``plan.LAUNCH_BYTES``: the ring route when every declared window
-          (and prefix) is at most 512 KiB, the wide route otherwise
-          (``ZEEKSTD_TPU_RING=0`` forces the wide route)
-  host    post-kernel checks: bad flag, literal count, content size,
-          seek-table size, XXH64
-  Frames past one of the reference's fused-route guards (a prefix over
-  128 KiB, a frame bound over 4 MiB off the ring route, a block
-  bitstream over 16384 words, a raw block or literal budget over
-  128 KiB) take the serial route instead (``decompress_frame``: the
-  doubling route, the reference's classic path), counted with the
-  reference's reason in ``decode_routes.serial_fallback_count``.
-- ``serial`` or ``doubling``: device Huffman and FSE decode, then the
-  serial executor kernel or pointer doubling (``decode_routes.py``).
+Decode (``decompress_archive``, ``decode_frames``, ``decompress_frame``):
+  host    plan every frame (``plan.py``)
+  then    ``decode_routes.decode_planned``: the fused route (the ring or
+          wide decoder) by default, the serial or doubling route under
+          ``ZEEKSTD_TPU_EXEC`` or past a fused-route guard
 """
 
 from __future__ import annotations
@@ -51,14 +37,12 @@ from .codec import sequences as seq_mod
 from .codec.compress import compress_frame
 from .codec.seq_encode import _choose_table, write_num_sequences
 from .constants import ZSTD_BLOCK_SIZE_MAX
-from .device import counters, from_reference_arrays, phase_timer, resolve_device, trace_range
+from .device import phase_timer, resolve_device, trace_range
 from .native import fse_choice, loader
 from .ops import assemble, entropy
-from .ops import decode_kernel as dk
 from .ops import fse_kernel as fk
 from .ops import match_kernel as mk
 from .ops import match_tpu as mt
-from .ops import ring_kernel as rk
 from .plan import _plan_frame
 from .plan import checksum as content_checksum
 from .seek_table import SeekTable
@@ -74,11 +58,6 @@ assert BLOCK_SIZE <= ZSTD_BLOCK_SIZE_MAX
 
 MAX_FRAME_SIZE = 8 << 20   # the match kernel's largest frame row
 WINDOW_CAP = 1 << 19       # match-kernel offsets stay inside 512 KiB
-LITB = 128 << 10           # a block's literal budget (the format's block cap)
-# The reference's fused-route guards (tpu_archive.py:2273-2362) beside
-# decode_routes.SERIAL_LITB: frames past them take the next route.
-SERIAL_OUTB_CAP = 1 << 22  # a frame's output bound off the ring route
-FUSED_WB_CAP = 16384       # words of one block's sequence bitstream
 
 
 def empty_frame(checksum: bool) -> bytes:
@@ -437,8 +416,6 @@ def _host_jobs(
         fi = np.array([d["frame"] for d in seq_blocks], np.int64)
         bi = np.array([d["block"] for d in seq_blocks], np.int64)
         native = fse_choice.choose_tables(fi, *(h[fi, bi] for h in hists))
-        counters["enc.fse_choices"] += 3 * len(seq_blocks)
-        counters["enc.fse_choices_native"] += 3 * sum(row is not None for row in native)
         for d, row in zip(seq_blocks, native):
             f, b = d["frame"], d["block"]
             choices = {}
@@ -954,13 +931,6 @@ def compress_archive(
 # --------------------------------------------------------------- decode ---
 
 
-def exec_mode() -> str:
-    """The decode route ``ZEEKSTD_TPU_EXEC`` selects: "serial", "doubling",
-    or "fused" (unset, "fused" or any other value)."""
-    mode = os.environ.get("ZEEKSTD_TPU_EXEC", "")
-    return mode if mode in ("serial", "doubling") else "fused"
-
-
 def decompress_archive(
     blob: bytes,
     seek_table=None,
@@ -968,7 +938,9 @@ def decompress_archive(
     return_device: bool = False,
     device=None,
 ):
-    """Decode a whole seekable archive on the route ``exec_mode`` selects.
+    """Decode a whole seekable archive on the route
+    ``decode_routes.exec_mode`` selects (the serial route past a
+    fused-route guard).
 
     With a ``seek_table`` the frame boundaries come from it; without one
     the frames are walked in order, skipping skippable frames. With
@@ -979,22 +951,9 @@ def decompress_archive(
         plans = plan_mod.plan_archive(blob, seek_table)
     if not plans:
         return b""
-    lay = plan_mod.collect(plans)
-    mode = exec_mode()
-    if mode != "fused":
-        return decode_routes.classic_decompress_archive(
-            blob, plans, lay, seek_table, verify_checksum, return_device, dev,
-            serial=mode == "serial",
-        )
-    with phase_timer("dec.huf_host"):
-        dec_list = _huf_batch_host(lay.streams)
-    res = _fused_exec_dispatch(
-        blob, plans, lay, dec_list, seek_table, verify_checksum, return_device, dev,
-    )
-    if res is NotImplemented:
-        res = decode_routes.classic_decompress_archive(
-            blob, plans, lay, seek_table, verify_checksum, return_device, dev, serial=True)
-    return res
+    return decode_routes.decode_planned(
+        blob, plans, plan_mod.collect(plans), dev, route=decode_routes.exec_mode(),
+        seek_table=seek_table, verify_checksum=verify_checksum, return_device=return_device)
 
 
 def decode_frames(blob, spans, verify_checksum: bool = True, device=None):
@@ -1004,16 +963,9 @@ def decode_frames(blob, spans, verify_checksum: bool = True, device=None):
     one per span."""
     dev = resolve_device(device)
     plans = [_plan_frame(blob, s) for s, _e in spans]
-    lay = plan_mod.collect(plans)
-    dec_list = _huf_batch_host(lay.streams)
-    res = _fused_exec_dispatch(
-        blob, plans, lay, dec_list, None, verify_checksum, False, dev, return_parts=True,
-    )
-    if res is NotImplemented:
-        res = decode_routes.classic_decompress_archive(
-            blob, plans, lay, None, verify_checksum, False, dev, serial=True,
-            return_parts=True)
-    return res
+    return decode_routes.decode_planned(
+        blob, plans, plan_mod.collect(plans), dev, verify_checksum=verify_checksum,
+        return_parts=True)
 
 
 def decompress_frame(frame: bytes, pos: int = 0, verify_checksum: bool = True,
@@ -1029,222 +981,8 @@ def decompress_frame(frame: bytes, pos: int = 0, verify_checksum: bool = True,
         hdr, plan, fpos = _plan_frame(frame, pos)
         plans = [(hdr, plan, fpos)]
         lay = plan_mod.collect(plans)
-    prefixes = [prefix] if prefix else None
-    out = NotImplemented
-    if exec_mode() == "fused":
-        with phase_timer("dec.huf_host"):
-            dec_list = _huf_batch_host(lay.streams)
-        out = _fused_exec_dispatch(
-            frame, plans, lay, dec_list, None, verify_checksum, False, dev, prefixes=prefixes,
-        )
-    if out is NotImplemented:
-        # The classic path: the doubling route over this one frame.
-        out = decode_routes.classic_decompress_archive(
-            frame, plans, lay, None, verify_checksum, False, dev, prefixes=prefixes)
+    route = "fused" if decode_routes.exec_mode() == "fused" else "doubling"
+    out = decode_routes.decode_planned(
+        frame, plans, lay, dev, route=route, fallback="doubling",
+        verify_checksum=verify_checksum, prefixes=[prefix] if prefix else None)
     return out, fpos + (4 if hdr.has_checksum else 0)
-
-
-def _huf_batch_host(stream_list):
-    """Host Huffman literal decode (native), in stream order. Tables wider
-    than the native decoder's 11 bits take the Python decoder, as in the
-    reference."""
-    out = []
-    for sbytes, olen, table in stream_list:
-        dec = None
-        if table.max_bits <= 11:
-            dec = loader.huf_stream_decode(
-                sbytes, table.symbol, table.nb_bits, table.max_bits, olen
-            )
-        if dec is None:
-            dec = np.frombuffer(huf.decode_stream(table, sbytes, olen), np.uint8)
-        out.append(dec)
-    return out
-
-
-def use_ring_route(plans, max_bound: int, plens=None) -> bool:
-    """The reference's route rule: the ring kernel when every declared
-    window and every prefix is at most 512 KiB (and rows stay under 2^27
-    bytes), unless ``ZEEKSTD_TPU_RING=0``."""
-    plens = plens or [0] * len(plans)
-    return (
-        os.environ.get("ZEEKSTD_TPU_RING", "") != "0"
-        and all((hdr.window_size or 0) <= rk.RING and plen <= rk.RING
-                for (hdr, _p, _c), plen in zip(plans, plens))
-        and max_bound <= (1 << 27)
-    )
-
-
-def _outb(max_bound: int) -> int:
-    """A launch's output row: its largest frame bound rounded up to a power
-    of two, at least 4 KiB."""
-    return 1 << max((max_bound - 1).bit_length(), 12)
-
-
-def _ring_lw(nlit_max: int) -> int:
-    """Words per frame of the ring route's literal pools: the largest pool
-    and 64 bytes of slack, in 4 KiB rows."""
-    return max(-(-(nlit_max + 64) // 4096), 1) * 1024
-
-
-def _ring_launch_bytes(n, max_bound, nlit_max, n_rec, n_seq):
-    return rk.launch_bytes(n, _outb(max_bound), _ring_lw(nlit_max), n_rec, n_seq)
-
-
-def _wide_launch_bytes(n, max_bound, nlit_max, n_rec, n_seq):
-    return dk.launch_bytes(n, _outb(max_bound), decode_routes.lit_rows(nlit_max, LITB), n_rec,
-                           n_seq)
-
-
-def _ring_exec_fn(consts, meta, words, tables, pools, nlit_f, OUTB, dev):
-    """Ring route: literal pools packed as LE words; output words viewed
-    as bytes."""
-    F = len(pools)
-    LW = _ring_lw(int(nlit_f.max()) if F else 0)
-    litw_np = np.zeros((F, LW * 4), np.uint8)
-    for fi in range(F):
-        litw_np[fi, : nlit_f[fi]] = pools[fi]
-    lit_words = torch.from_numpy(litw_np.view(np.int32)).to(dev)
-    outw, meta_out = rk.ring_decode(consts, meta, words, tables, lit_words, OUTB=OUTB)
-    return outw.view(torch.uint8).reshape(F, OUTB), meta_out
-
-
-def _fused_exec_fn(consts, meta, words, tables, pools, nlit_f, OUTB, dev):
-    """Wide route: literal pools one int32 per byte, output bytes."""
-    F = len(pools)
-    LROWS = decode_routes.lit_rows(int(nlit_f.max()) if F else 0, LITB)
-    lits_np = np.zeros((F, LROWS * 128), np.uint8)
-    for fi in range(F):
-        lits_np[fi, : nlit_f[fi]] = pools[fi]
-    lits = torch.from_numpy(lits_np).to(dev).to(torch.int32).reshape(F, LROWS, 128)
-    out, meta_out = dk.wide_decode(consts, meta, words, tables, lits, OUTB=OUTB,
-                                   LITB=LITB)
-    return out.reshape(F, OUTB), meta_out
-
-
-def _fused_exec_dispatch(
-    blob, plans, lay, dec_list, seek_table,
-    verify_checksum, return_device, dev, return_parts=False, prefixes=None,
-):
-    """Decode every planned frame on the fused route, or return
-    NotImplemented (counted, with the reference's reason) when a
-    fused-route guard rules the frames out.
-
-    The frames go in contiguous launch groups, each launch's outputs and
-    scratch within ``plan.LAUNCH_BYTES`` (one launch when all fit), each
-    group laid out at its own largest bound and pool. With
-    ``return_device`` the result is one (F, OUTB) tensor at the archive's
-    largest bound, filled group by group: only the scratch is bounded.
-
-    ``dec_list``: host-decoded Huffman literal streams in plan order;
-    each frame's literal pool is assembled on the host and staged once.
-
-    ``prefixes``: optional per-frame ref_prefix bytes. Each rides as a
-    leading literal record that match offsets reach into, and is sliced
-    off the output."""
-    F = len(plans)
-    plens = [len(p) if p else 0 for p in prefixes] if prefixes else [0] * F
-    if any(plens) and return_device:
-        raise ValueError("prefixes cannot combine with return_device")
-    if max(plens) > decode_routes.SERIAL_LITB:
-        return decode_routes.count_fallback("prefix over literal budget")
-    bounds = [b + plen for b, plen in zip(plan_mod.frame_bounds(plans, seek_table), plens)]
-    max_bound = max(bounds)
-    use_ring = use_ring_route(plans, max_bound, plens)
-    if not use_ring and max_bound > SERIAL_OUTB_CAP:
-        return decode_routes.count_fallback(f"frame bound {max_bound} over cap")
-
-    with phase_timer("dec.fused_layout"):
-        if lay.seq_blocks:
-            words, starts, tidx, packed, logs_t, wb = plan_mod.fse_stage(lay.seq_blocks)
-            if wb > FUSED_WB_CAP:
-                return decode_routes.count_fallback("bitstream over SMEM cap")
-        else:
-            words = np.zeros((2, 16), np.uint32)
-            starts = np.zeros(2, np.int32)
-            tidx = np.zeros((2, 3), np.int32)
-            packed = np.zeros((1, 512), np.int32)
-            logs_t = np.zeros(1, np.int32)
-
-        static_np = np.frombuffer(lay.static, np.uint8)
-        frames_blocks = []
-        pool_parts = [[] for _ in range(F)]
-        for fi, fblocks in enumerate(lay.blocks):
-            blocks = []
-            if plens[fi]:
-                pool_parts[fi].append(np.frombuffer(prefixes[fi], np.uint8))
-                blocks.append(("lit", plens[fi]))
-            for (kind, *_args), blk in zip(plans[fi][1], fblocks):
-                if blk[0] == "rle":
-                    blocks.append(blk)
-                    continue
-                chunk_len = plan_mod.seg_len(blk[1])
-                if chunk_len > decode_routes.SERIAL_LITB:
-                    return decode_routes.count_fallback(
-                        "oversize raw block" if kind == "raw" else "oversize literal budget")
-                for static, src, n in blk[1]:
-                    pool_parts[fi].append(static_np[src : src + n] if static else dec_list[src])
-                if blk[0] == "lit":
-                    blocks.append(("lit", chunk_len))
-                    continue
-                _seq, _segs, r, n = blk
-                logs = (
-                    int(logs_t[tidx[r, 0]])
-                    | int(logs_t[tidx[r, 1]]) << 5
-                    | int(logs_t[tidx[r, 2]]) << 10
-                )
-                blocks.append((
-                    "seq", r, n, chunk_len,
-                    int(tidx[r, 0]), int(tidx[r, 1]),
-                    int(tidx[r, 2]), logs, int(starts[r]),
-                ))
-            frames_blocks.append(blocks)
-        nlit_f = np.zeros(F, np.int32)
-        pools = []
-        for fi in range(F):
-            pool = (
-                np.concatenate(pool_parts[fi])
-                if pool_parts[fi] else np.zeros(0, np.uint8)
-            )
-            pools.append(pool)
-            nlit_f[fi] = len(pool)
-        staged = from_reference_arrays(
-            dev, consts=dk.make_consts(), words=words, tables=packed,
-        )
-        counts = [(max(len(blocks), 1), sum(b[2] for b in blocks if b[0] == "seq"))
-                  for blocks in frames_blocks]
-        route, launch_bytes = ((_ring_exec_fn, _ring_launch_bytes) if use_ring
-                               else (_fused_exec_fn, _wide_launch_bytes))
-        groups = plan_mod.launch_groups(list(zip(bounds, nlit_f)), counts, launch_bytes)
-
-    out_dev, totals, rows = None, [], []
-    for lo, hi in groups:
-        with phase_timer("dec.fused_layout"):
-            meta, _n_rec = dk.build_records(frames_blocks[lo:hi])
-            meta_dev = from_reference_arrays(dev, meta=meta)["meta"]
-        with phase_timer("dec.fused_exec") as _pt:
-            out_g, meta_out = route(
-                staged["consts"], meta_dev, staged["words"], staged["tables"],
-                pools[lo:hi], nlit_f[lo:hi], _outb(max(bounds[lo:hi])), dev,
-            )
-            _pt.fence(out_g)
-        totals += decode_routes.check_frames(plans[lo:hi], meta_out, nlit_f[lo:hi],
-                                             bounds[lo:hi], seek_table, plens[lo:hi])
-        if return_device:
-            out_dev = decode_routes.place_group(out_dev, out_g, lo, hi, (F, _outb(max_bound)))
-        else:
-            with phase_timer("dec.fused_pull+verify"):
-                out = out_g.cpu().numpy()
-                rows += [out[fi - lo, plens[fi] : totals[fi]].tobytes() for fi in range(lo, hi)]
-        # The next group allocates only after this one's buffers are freed.
-        del out_g, meta_out, meta_dev
-
-    if return_device:
-        return out_dev, totals
-
-    if verify_checksum:
-        with phase_timer("dec.fused_pull+verify"):
-            decode_routes.verify_checksums(blob, plans, rows)
-    if return_parts:
-        return rows
-    with trace_range("dec.join"):
-        return b"".join(rows)

@@ -1,13 +1,30 @@
-"""The serial and pointer-doubling decode routes.
+"""Every decode route: fused, serial and pointer doubling.
 
-Port of the non-fused decode paths of ``zeekstd_tpu/tpu_archive.py``
-(``tpu_decompress_archive`` after its fused branch, ``_huf_batch_dev``,
-``_fse_batch_dev``, ``_serial_*``, ``_dec_exec_fn``) and of the classic
-branch of ``zeekstd_tpu/tpu_codec.tpu_decompress_frame``.
-``ZEEKSTD_TPU_EXEC`` selects them (``archive.exec_mode``); the fused
-route stays the default.
+Port of the decode paths of ``zeekstd_tpu/tpu_archive.py``
+(``tpu_decompress_archive``, ``_fused_exec_dispatch``, ``_huf_batch_dev``,
+``_fse_batch_dev``, ``_serial_*``, ``_dec_exec_fn``) and of
+``zeekstd_tpu/tpu_codec.tpu_decompress_frame``. ``decode_planned`` takes
+planned frames (``plan.py``) down the route its caller names and, past a
+fused-route guard, the caller's fallback; the ``archive`` entry points and
+the mesh's ``parallel/pipeline`` call it and nothing else here.
+``ZEEKSTD_TPU_EXEC`` (``exec_mode``) selects the serial or doubling route;
+the fused route stays the default.
 
-Both routes share two device dispatches:
+  fused     dec.huf_host (every Huffman literal stream, decoded on the
+            host by the native runtime), dec.fused_layout (each frame's
+            literal pool and record table), one dec.fused_exec per group
+            of frames under ``plan.LAUNCH_BYTES`` that decodes every FSE
+            stream and executes every sequence: the ring decoder when
+            every declared window (and prefix) is at most 512 KiB, the
+            wide decoder otherwise (``ZEEKSTD_TPU_RING=0`` forces it);
+            then dec.fused_pull+verify (bad flag, literal count, content
+            size, seek-table size, XXH64). Frames past one of the
+            reference's guards (a prefix over 128 KiB, a frame bound over
+            4 MiB off the ring route, a block bitstream over 16384 words,
+            a raw block or literal budget over 128 KiB) take the fallback,
+            counted with the reference's reason by ``count_fallback``.
+
+The serial and doubling routes share two device dispatches:
   dec.huf_batch   every Huffman literal stream, decoded on the device by
                   bit reachability (``ops/huffman_spec.py``: torch glue and
                   the two reachability kernels), or by chunk speculation
@@ -33,8 +50,8 @@ Then:
             passes; the reference's shallow first pass, its escalation and
             its host decode of unresolved frames have nothing left to do
             here.
-``decompress_frame`` on either route is the doubling route over its one
-frame, a prefix riding as a leading literal run.
+``archive.decompress_frame`` on either route is the doubling route over
+its one frame, a prefix riding as a leading literal run.
 """
 
 from __future__ import annotations
@@ -45,19 +62,72 @@ import numpy as np
 import torch
 
 from . import plan as plan_mod
+from .codec import huffman as huf
 from .constants import SEEKABLE_MAX_FRAME_SIZE
-from .device import from_reference_arrays, phase_timer
+from .device import from_reference_arrays, phase_timer, trace_range
 from .errors import corruption_detected
+from .native import loader
 from .ops import decode_kernel as dk
 from .ops import entropy, huffman_spec, seq_exec
 from .ops import exec_kernel as ek
+from .ops import ring_kernel as rk
 
+LITB = 128 << 10         # the wide decoder's literal window (the format's block cap)
 SERIAL_LITB = 128 << 10  # literal window per record (>= any block's budget)
+# The reference's fused-route guards (tpu_archive.py:2273-2362) beside
+# SERIAL_LITB: frames past them take the next route.
+SERIAL_OUTB_CAP = 1 << 22  # a frame's output bound off the ring route
+FUSED_WB_CAP = 16384       # words of one block's sequence bitstream
 
-# Observability: decodes that fell off the fused route (archive.py's
-# guards) or off the serial executor, and the last one's reason (the
-# reference's strings).
+# Observability: decodes that fell off the fused route (its guards) or
+# off the serial executor, and the last one's reason (the reference's
+# strings).
 _serial_fallbacks = {"count": 0, "reason": ""}
+
+
+def exec_mode() -> str:
+    """The decode route ``ZEEKSTD_TPU_EXEC`` selects: "serial", "doubling",
+    or "fused" (unset, "fused" or any other value)."""
+    mode = os.environ.get("ZEEKSTD_TPU_EXEC", "")
+    return mode if mode in ("serial", "doubling") else "fused"
+
+
+def decode_planned(blob, plans, lay, dev, *, route: str = "fused", fallback: str = "serial",
+                   seek_table=None, verify_checksum: bool = True, return_device: bool = False,
+                   return_parts: bool = False, prefixes=None):
+    """Decode planned frames (``lay``: their ``plan.Layout``) on ``route``
+    ("fused", "serial" or "doubling"); frames past a fused-route guard
+    take ``fallback`` ("serial" or "doubling"). Returns the frames' joined
+    bytes, a list of bytes per frame with ``return_parts``, or (uint8[F,
+    out_bound] on ``dev``, sizes) with ``return_device``. ``prefixes``:
+    optional per-frame ref_prefix bytes (fused and doubling routes)."""
+    if route == "fused":
+        with phase_timer("dec.huf_host"):
+            dec_list = _huf_batch_host(lay.streams)
+        res = _fused_exec_dispatch(blob, plans, lay, dec_list, seek_table, verify_checksum,
+                                   return_device, dev, return_parts, prefixes)
+        if res is not NotImplemented:
+            return res
+        route = fallback
+    with phase_timer("dec.huf_batch") as pt:
+        dec_streams, huf_out_bound = _huf_batch_dev(lay.streams, dev)
+        pt.fence(dec_streams)
+    with phase_timer("dec.fse_batch") as pt2:
+        lls_b, mls_b, offs_b, ofvs_b, hasrep_dev, seq_bound = _fse_batch_dev(
+            lay.seq_blocks, dev)
+        pt2.fence(lls_b)
+    res = NotImplemented
+    if route == "serial":
+        res = _serial_exec_dispatch(
+            blob, plans, lay, lls_b, mls_b, ofvs_b, seq_bound, dec_streams, huf_out_bound,
+            seek_table, verify_checksum, return_device, dev,
+        )
+    if res is NotImplemented:
+        res = _doubling_dispatch(
+            blob, plans, lay, lls_b, mls_b, offs_b, ofvs_b, hasrep_dev, seq_bound, dec_streams,
+            huf_out_bound, verify_checksum, return_device, dev, prefixes,
+        )
+    return res if return_device or return_parts else b"".join(res)
 
 
 def serial_fallback_count() -> int:
@@ -112,6 +182,208 @@ def verify_checksums(blob, plans, parts) -> None:
 
 def _pow2(n: int, floor_log: int) -> int:
     return 1 << max((n - 1).bit_length(), floor_log)
+
+
+# ----------------------------------------------------------- fused route ---
+
+
+def _huf_batch_host(stream_list):
+    """Host Huffman literal decode (native), in stream order. Tables wider
+    than the native decoder's 11 bits take the Python decoder, as in the
+    reference."""
+    out = []
+    for sbytes, olen, table in stream_list:
+        dec = None
+        if table.max_bits <= 11:
+            dec = loader.huf_stream_decode(
+                sbytes, table.symbol, table.nb_bits, table.max_bits, olen
+            )
+        if dec is None:
+            dec = np.frombuffer(huf.decode_stream(table, sbytes, olen), np.uint8)
+        out.append(dec)
+    return out
+
+
+def use_ring_route(plans, max_bound: int, plens=None) -> bool:
+    """The reference's route rule: the ring kernel when every declared
+    window and every prefix is at most 512 KiB (and rows stay under 2^27
+    bytes), unless ``ZEEKSTD_TPU_RING=0``."""
+    plens = plens or [0] * len(plans)
+    return (
+        os.environ.get("ZEEKSTD_TPU_RING", "") != "0"
+        and all((hdr.window_size or 0) <= rk.RING and plen <= rk.RING
+                for (hdr, _p, _c), plen in zip(plans, plens))
+        and max_bound <= (1 << 27)
+    )
+
+
+def _ring_lw(nlit_max: int) -> int:
+    """Words per frame of the ring route's literal pools: the largest pool
+    and 64 bytes of slack, in 4 KiB rows."""
+    return max(-(-(nlit_max + 64) // 4096), 1) * 1024
+
+
+def _ring_launch_bytes(n, max_bound, nlit_max, n_rec, n_seq):
+    return rk.launch_bytes(n, _pow2(max_bound, 12), _ring_lw(nlit_max), n_rec, n_seq)
+
+
+def _wide_launch_bytes(n, max_bound, nlit_max, n_rec, n_seq):
+    return dk.launch_bytes(n, _pow2(max_bound, 12), lit_rows(nlit_max, LITB), n_rec, n_seq)
+
+
+def _ring_exec_fn(consts, meta, words, tables, pools, nlit_f, OUTB, dev):
+    """Ring route: literal pools packed as LE words; output words viewed
+    as bytes."""
+    F = len(pools)
+    LW = _ring_lw(int(nlit_f.max()) if F else 0)
+    litw_np = np.zeros((F, LW * 4), np.uint8)
+    for fi in range(F):
+        litw_np[fi, : nlit_f[fi]] = pools[fi]
+    lit_words = torch.from_numpy(litw_np.view(np.int32)).to(dev)
+    outw, meta_out = rk.ring_decode(consts, meta, words, tables, lit_words, OUTB=OUTB)
+    return outw.view(torch.uint8).reshape(F, OUTB), meta_out
+
+
+def _fused_exec_fn(consts, meta, words, tables, pools, nlit_f, OUTB, dev):
+    """Wide route: literal pools one int32 per byte, output bytes."""
+    F = len(pools)
+    LROWS = lit_rows(int(nlit_f.max()) if F else 0, LITB)
+    lits_np = np.zeros((F, LROWS * 128), np.uint8)
+    for fi in range(F):
+        lits_np[fi, : nlit_f[fi]] = pools[fi]
+    lits = torch.from_numpy(lits_np).to(dev).to(torch.int32).reshape(F, LROWS, 128)
+    out, meta_out = dk.wide_decode(consts, meta, words, tables, lits, OUTB=OUTB,
+                                   LITB=LITB)
+    return out.reshape(F, OUTB), meta_out
+
+
+def _fused_exec_dispatch(
+    blob, plans, lay, dec_list, seek_table,
+    verify_checksum, return_device, dev, return_parts=False, prefixes=None,
+):
+    """Decode every planned frame on the fused route, or return
+    NotImplemented (counted, with the reference's reason) when a
+    fused-route guard rules the frames out.
+
+    The frames go in contiguous launch groups, each launch's outputs and
+    scratch within ``plan.LAUNCH_BYTES`` (one launch when all fit), each
+    group laid out at its own largest bound and pool. With
+    ``return_device`` the result is one (F, OUTB) tensor at the archive's
+    largest bound, filled group by group: only the scratch is bounded.
+
+    ``dec_list``: host-decoded Huffman literal streams in plan order;
+    each frame's literal pool is assembled on the host and staged once.
+
+    ``prefixes``: optional per-frame ref_prefix bytes. Each rides as a
+    leading literal record that match offsets reach into, and is sliced
+    off the output."""
+    F = len(plans)
+    plens = [len(p) if p else 0 for p in prefixes] if prefixes else [0] * F
+    if any(plens) and return_device:
+        raise ValueError("prefixes cannot combine with return_device")
+    if max(plens) > SERIAL_LITB:
+        return count_fallback("prefix over literal budget")
+    bounds = [b + plen for b, plen in zip(plan_mod.frame_bounds(plans, seek_table), plens)]
+    max_bound = max(bounds)
+    use_ring = use_ring_route(plans, max_bound, plens)
+    if not use_ring and max_bound > SERIAL_OUTB_CAP:
+        return count_fallback(f"frame bound {max_bound} over cap")
+
+    with phase_timer("dec.fused_layout"):
+        if lay.seq_blocks:
+            words, starts, tidx, packed, logs_t, wb = plan_mod.fse_stage(lay.seq_blocks)
+            if wb > FUSED_WB_CAP:
+                return count_fallback("bitstream over SMEM cap")
+        else:
+            words = np.zeros((2, 16), np.uint32)
+            starts = np.zeros(2, np.int32)
+            tidx = np.zeros((2, 3), np.int32)
+            packed = np.zeros((1, 512), np.int32)
+            logs_t = np.zeros(1, np.int32)
+
+        static_np = np.frombuffer(lay.static, np.uint8)
+        frames_blocks = []
+        pool_parts = [[] for _ in range(F)]
+        for fi, fblocks in enumerate(lay.blocks):
+            blocks = []
+            if plens[fi]:
+                pool_parts[fi].append(np.frombuffer(prefixes[fi], np.uint8))
+                blocks.append(("lit", plens[fi]))
+            for (kind, *_args), blk in zip(plans[fi][1], fblocks):
+                if blk[0] == "rle":
+                    blocks.append(blk)
+                    continue
+                chunk_len = plan_mod.seg_len(blk[1])
+                if chunk_len > SERIAL_LITB:
+                    return count_fallback(
+                        "oversize raw block" if kind == "raw" else "oversize literal budget")
+                for static, src, n in blk[1]:
+                    pool_parts[fi].append(static_np[src : src + n] if static else dec_list[src])
+                if blk[0] == "lit":
+                    blocks.append(("lit", chunk_len))
+                    continue
+                _seq, _segs, r, n = blk
+                logs = (
+                    int(logs_t[tidx[r, 0]])
+                    | int(logs_t[tidx[r, 1]]) << 5
+                    | int(logs_t[tidx[r, 2]]) << 10
+                )
+                blocks.append((
+                    "seq", r, n, chunk_len,
+                    int(tidx[r, 0]), int(tidx[r, 1]),
+                    int(tidx[r, 2]), logs, int(starts[r]),
+                ))
+            frames_blocks.append(blocks)
+        nlit_f = np.zeros(F, np.int32)
+        pools = []
+        for fi in range(F):
+            pool = (
+                np.concatenate(pool_parts[fi])
+                if pool_parts[fi] else np.zeros(0, np.uint8)
+            )
+            pools.append(pool)
+            nlit_f[fi] = len(pool)
+        staged = from_reference_arrays(
+            dev, consts=dk.make_consts(), words=words, tables=packed,
+        )
+        counts = [(max(len(blocks), 1), sum(b[2] for b in blocks if b[0] == "seq"))
+                  for blocks in frames_blocks]
+        route, launch_bytes = ((_ring_exec_fn, _ring_launch_bytes) if use_ring
+                               else (_fused_exec_fn, _wide_launch_bytes))
+        groups = plan_mod.launch_groups(list(zip(bounds, nlit_f)), counts, launch_bytes)
+
+    out_dev, totals, rows = None, [], []
+    for lo, hi in groups:
+        with phase_timer("dec.fused_layout"):
+            meta, _n_rec = dk.build_records(frames_blocks[lo:hi])
+            meta_dev = from_reference_arrays(dev, meta=meta)["meta"]
+        with phase_timer("dec.fused_exec") as _pt:
+            out_g, meta_out = route(
+                staged["consts"], meta_dev, staged["words"], staged["tables"],
+                pools[lo:hi], nlit_f[lo:hi], _pow2(max(bounds[lo:hi]), 12), dev,
+            )
+            _pt.fence(out_g)
+        totals += check_frames(plans[lo:hi], meta_out, nlit_f[lo:hi],
+                                             bounds[lo:hi], seek_table, plens[lo:hi])
+        if return_device:
+            out_dev = place_group(out_dev, out_g, lo, hi, (F, _pow2(max_bound, 12)))
+        else:
+            with phase_timer("dec.fused_pull+verify"):
+                out = out_g.cpu().numpy()
+                rows += [out[fi - lo, plens[fi] : totals[fi]].tobytes() for fi in range(lo, hi)]
+        # The next group allocates only after this one's buffers are freed.
+        del out_g, meta_out, meta_dev
+
+    if return_device:
+        return out_dev, totals
+
+    if verify_checksum:
+        with phase_timer("dec.fused_pull+verify"):
+            verify_checksums(blob, plans, rows)
+    if return_parts:
+        return rows
+    with trace_range("dec.join"):
+        return b"".join(rows)
 
 
 # ------------------------------------------------------ shared dispatches ---
@@ -234,35 +506,6 @@ def _gather_bytes(F: int, size: int, segl: int) -> int:
     once (``_build_map``) and the gathered byte; per segment, 64 B of its
     int32 and int64 copies and the scatter's temporaries."""
     return F * (size * 25 + segl * 64)
-
-
-def classic_decompress_archive(blob, plans, lay, seek_table, verify_checksum, return_device,
-                               dev, serial: bool = False, prefixes=None,
-                               return_parts: bool = False):
-    """Decode planned frames (``lay``: their ``plan.Layout``) on the serial
-    (``serial=True``) or the doubling route. ``prefixes``: optional
-    per-frame ref_prefix bytes (doubling route only), each a leading
-    literal run that match offsets reach into, sliced off the output.
-    ``return_parts``: a list of bytes per frame instead of their join."""
-    with phase_timer("dec.huf_batch") as pt:
-        dec_streams, huf_out_bound = _huf_batch_dev(lay.streams, dev)
-        pt.fence(dec_streams)
-    with phase_timer("dec.fse_batch") as pt2:
-        lls_b, mls_b, offs_b, ofvs_b, hasrep_dev, seq_bound = _fse_batch_dev(
-            lay.seq_blocks, dev)
-        pt2.fence(lls_b)
-    res = NotImplemented
-    if serial:
-        res = _serial_exec_dispatch(
-            blob, plans, lay, lls_b, mls_b, ofvs_b, seq_bound, dec_streams, huf_out_bound,
-            seek_table, verify_checksum, return_device, dev,
-        )
-    if res is NotImplemented:
-        res = _doubling_dispatch(
-            blob, plans, lay, lls_b, mls_b, offs_b, ofvs_b, hasrep_dev, seq_bound, dec_streams,
-            huf_out_bound, verify_checksum, return_device, dev, prefixes,
-        )
-    return res if return_device or return_parts else b"".join(res)
 
 
 # ---------------------------------------------------------- serial route ---

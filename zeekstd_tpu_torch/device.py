@@ -82,14 +82,9 @@ def set_timing(mode: int) -> None:
 # dec.frame_hits      visits served by the frame the Decoder held
 # dec.frame_load_bytes decompressed bytes of the frames it loaded (a large
 #                     frame's streamed blocks included)
-# enc.fse_choices     sequence-table choices the archive encoder made, three
-#                     a block with sequences (``archive._host_jobs``)
-# enc.fse_choices_native  those made by the native chooser
-#                     (``native/fse_choice``), not by ``_choose_table``
 counters: dict[str, int] = {"plan.copied_bytes": 0, "plan.planned_bytes": 0,
                             "dec.read_bytes": 0, "dec.frame_visits": 0,
-                            "dec.frame_hits": 0, "dec.frame_load_bytes": 0,
-                            "enc.fse_choices": 0, "enc.fse_choices_native": 0}
+                            "dec.frame_hits": 0, "dec.frame_load_bytes": 0}
 
 
 def reset_counters() -> None:

@@ -24,7 +24,7 @@ are gathered too, at a row width the processes agree on first.
 
 Decode (``parallel_decompress``): frames are planned on every process,
 each shard decodes its block in one fused dispatch per launch group
-(``archive._fused_exec_dispatch``: the ring or wide decoder), or on the
+(``decode_routes.decode_planned``: the ring or wide decoder), or on the
 doubling route (``ZEEKSTD_TPU_MESH_EXEC=doubling``, or past a fused-route
 guard), and the decoded rows and sizes are all-gathered, so that every
 process returns the whole result. Repeat offsets resolve in order on both
@@ -307,16 +307,10 @@ def _decode_block(archive: bytes, plans, sub_table: SeekTable, dev):
     launch group) unless ``ZEEKSTD_TPU_MESH_EXEC=doubling`` or a
     fused-route guard sends them to the doubling route. Returns (rows
     uint8[k, w] on ``dev``, sizes)."""
-    lay = plan_mod.collect(plans)
-    if os.environ.get("ZEEKSTD_TPU_MESH_EXEC", "") != "doubling":
-        with phase_timer("dec.huf_host"):
-            dec_list = archive_mod._huf_batch_host(lay.streams)
-        res = archive_mod._fused_exec_dispatch(archive, plans, lay, dec_list, sub_table,
-                                               verify_checksum=False, return_device=True,
-                                               dev=dev)
-        if res is not NotImplemented:
-            return res
-    return decode_routes.classic_decompress_archive(archive, plans, lay, None, False, True, dev)
+    route = "doubling" if os.environ.get("ZEEKSTD_TPU_MESH_EXEC", "") == "doubling" else "fused"
+    return decode_routes.decode_planned(
+        archive, plans, plan_mod.collect(plans), dev, route=route, fallback="doubling",
+        seek_table=sub_table, verify_checksum=False, return_device=True)
 
 
 def parallel_decompress(archive: bytes, seek_table: SeekTable, mesh: Mesh | None = None,
