@@ -1,8 +1,9 @@
 """The port's phases as profiler ranges and its host counters, on the CPU
 (``zeekstd_tpu_torch.device``): ``phase_timer`` and ``trace_range`` open
 ``zk.<name>`` while a ``torch.profiler`` records and nothing otherwise;
-``counters`` holds the bytes the decode planner slices and plans. No JAX,
-no child process: one small archive, a few seconds in all."""
+``counters`` holds the bytes the decode planner slices and plans and the
+FSE table descriptions it reads. No JAX, no child process: one small
+archive, a few seconds in all."""
 
 import io
 
@@ -27,6 +28,8 @@ NOT_PHASES = HOST_LOOPS + ("enc.input_rows", "dec.join")
 # The streaming Decoder's counters, which an archive's decode leaves alone.
 DEC_ZERO = {"dec.read_bytes": 0, "dec.frame_visits": 0, "dec.frame_hits": 0,
             "dec.frame_load_bytes": 0}
+# The planner's counts of FSE table descriptions, all and native, zeroed.
+FSE_ZERO = {"plan.fse_descs": 0, "plan.fse_descs_native": 0}
 
 
 @pytest.fixture
@@ -125,7 +128,8 @@ def test_plan_counters_count_planned_and_sliced_bytes():
                for i in range(st.num_frames)]
     assert st.num_frames == 4
     device.reset_counters()
-    assert device.counters == {"plan.copied_bytes": 0, "plan.planned_bytes": 0, **DEC_ZERO}
+    assert device.counters == {"plan.copied_bytes": 0, "plan.planned_bytes": 0, **FSE_ZERO,
+                               **DEC_ZERO}
     archive.decompress_archive(blob, st, device="cpu")
     once = dict(device.counters)
     assert once["plan.planned_bytes"] == frames
@@ -141,7 +145,8 @@ def test_plan_counters_count_planned_and_sliced_bytes():
 def test_plan_counters_one_block_frame():
     """A frame of one block, planned alone: the frame header's slice is
     its 18 bytes at most, the block header's its 3 bytes, the block's its
-    size."""
+    size; its three sequence tables are FSE descriptions, all read by the
+    native reader."""
     blob, st = archive.compress_archive(DATA[:4096], frame_size=FRAME, level=1,
                                         checksum=True, device="cpu")
     n, h = len(blob), frame_mod.parse_frame_header(blob).header_size
@@ -150,5 +155,6 @@ def test_plan_counters_one_block_frame():
     out, end = archive.decompress_frame(blob, device="cpu")
     assert out == DATA[:4096] and end == n
     assert device.counters == {"plan.copied_bytes": min(18, n) + 3 + block_size,
-                               "plan.planned_bytes": n, **DEC_ZERO}
+                               "plan.planned_bytes": n, "plan.fse_descs": 3,
+                               "plan.fse_descs_native": 3, **DEC_ZERO}
     device.reset_counters()

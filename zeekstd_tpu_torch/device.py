@@ -77,12 +77,17 @@ def set_timing(mode: int) -> None:
 # plan.copied_bytes   bytes of the slices the decode planner's frame walk
 #                     takes of the buffer it is handed (``plan._plan_frame``)
 # plan.planned_bytes  compressed bytes of the frames it planned
+# plan.fse_descs      FSE_Compressed table descriptions it read
+# plan.fse_descs_native those of them the native reader read
+#                     (``native/seq_header.cpp``; the rest, the verbatim
+#                     ``codec/fse.read_ncount``)
 # dec.read_bytes      bytes the streaming Decoder's reads returned
 # dec.frame_visits    frames those reads touched, one a frame a read
 # dec.frame_hits      visits served by the frame the Decoder held
 # dec.frame_load_bytes decompressed bytes of the frames it loaded (a large
 #                     frame's streamed blocks included)
 counters: dict[str, int] = {"plan.copied_bytes": 0, "plan.planned_bytes": 0,
+                            "plan.fse_descs": 0, "plan.fse_descs_native": 0,
                             "dec.read_bytes": 0, "dec.frame_visits": 0,
                             "dec.frame_hits": 0, "dec.frame_load_bytes": 0}
 

@@ -12,13 +12,14 @@ from dataclasses import dataclass
 import numpy as np
 
 from .codec import frame as frame_mod
+from .codec import fse
 from .codec import huffman as huf
 from .codec import literals as lit_mod
 from .codec import sequences as seq_mod
 from .constants import SEEKABLE_MAX_FRAME_SIZE, ZSTD_BLOCK_SIZE_MAX
 from .device import counters
 from .errors import checksum_wrong, corruption_detected
-from .native import loader
+from .native import loader, seq_header
 
 
 def checksum(data) -> int:
@@ -260,7 +261,17 @@ def _plan_frame(frame: bytes, pos: int = 0):
     planning one frame of a large buffer costs that frame alone. Adds the
     lengths of those slices to
     ``counters["plan.copied_bytes"]`` and the frame's compressed size to
-    ``counters["plan.planned_bytes"]``."""
+    ``counters["plan.planned_bytes"]``.
+
+    A compressed block's sequences-section header (the number of
+    sequences, the modes byte, the table descriptions) is read in one call
+    of ``native/seq_header.cpp``, held equal to the verbatim
+    ``parse_num_sequences`` and ``read_symbol_table``; where that library
+    cannot be built, or the block is one those functions raise on, they
+    read it, so errors keep their class, message and order. The tables are
+    built by the verbatim functions either way. Adds the FSE_Compressed
+    descriptions read to ``counters["plan.fse_descs"]``, and those the
+    library read to ``counters["plan.fse_descs_native"]``."""
     head = frame[pos : pos + FRAME_HEADER_MAX]
     hdr = frame_mod.parse_frame_header(head)
     fpos = pos + hdr.header_size
@@ -270,6 +281,8 @@ def _plan_frame(frame: bytes, pos: int = 0):
     plan = []  # per block: ("raw", bytes) | ("rle", byte, n) | ("cmp", desc)
     prev_table = None
     _dec_state = {}  # per-frame repeat-mode FSE tables
+    read_header = seq_header.reader()
+    descs = native_descs = 0  # FSE_Compressed descriptions: all, by the library
 
     while True:
         bhead = frame[fpos : fpos + BLOCK_HEADER]
@@ -325,27 +338,50 @@ def _plan_frame(frame: bytes, pos: int = 0):
                 else:
                     desc["streams"] = [(payload, sec.regenerated_size, table)]
 
-            rest = block[bpos:]
-            nseq, nconsumed = seq_mod.parse_num_sequences(rest)
-            rest = rest[nconsumed:]
-            desc["nseq"] = nseq
-            if nseq > 0:
-                modes = rest[0]
-                rest = rest[1:]
-                st = _dec_state
-                ll_t, c = seq_mod.read_symbol_table(rest, (modes >> 6) & 3, "ll", st.get("ll"))
-                rest = rest[c:]
-                of_t, c = seq_mod.read_symbol_table(rest, (modes >> 4) & 3, "of", st.get("of"))
-                rest = rest[c:]
-                ml_t, c = seq_mod.read_symbol_table(rest, (modes >> 2) & 3, "ml", st.get("ml"))
-                rest = rest[c:]
-                st["ll"], st["of"], st["ml"] = ll_t, of_t, ml_t
-                desc["tables"] = (ll_t, of_t, ml_t)
-                desc["payload"] = rest
+            st = _dec_state
+            sec_head = read_header(block, bpos) if read_header is not None else None
+            if sec_head is None:
+                # The verbatim functions: no library, or a block they raise on.
+                rest = block[bpos:]
+                nseq, nconsumed = seq_mod.parse_num_sequences(rest)
+                rest = rest[nconsumed:]
+                desc["nseq"] = nseq
+                if nseq > 0:
+                    modes = rest[0]
+                    rest = rest[1:]
+                    ll_t, c = seq_mod.read_symbol_table(rest, (modes >> 6) & 3, "ll", st.get("ll"))
+                    rest = rest[c:]
+                    of_t, c = seq_mod.read_symbol_table(rest, (modes >> 4) & 3, "of", st.get("of"))
+                    rest = rest[c:]
+                    ml_t, c = seq_mod.read_symbol_table(rest, (modes >> 2) & 3, "ml", st.get("ml"))
+                    rest = rest[c:]
+                    st["ll"], st["of"], st["ml"] = ll_t, of_t, ml_t
+                    desc["tables"] = (ll_t, of_t, ml_t)
+                    desc["payload"] = rest
+                    descs += sum((modes >> s) & 3 == seq_mod.MODE_FSE for s in (6, 4, 2))
+            else:
+                nseq, heads, payload_off = sec_head
+                desc["nseq"] = nseq
+                if nseq > 0:
+                    tables = []
+                    for cat, (mode, _c, arg, norm) in zip(("ll", "of", "ml"), heads):
+                        if mode == seq_mod.MODE_FSE:
+                            tables.append(fse.build_decode_table(norm, arg))
+                            descs += 1
+                            native_descs += 1
+                        elif mode == seq_mod.MODE_RLE:
+                            tables.append(fse.rle_decode_table(arg))
+                        else:  # Predefined, or Repeat (raises without a table)
+                            tables.append(seq_mod.read_symbol_table(b"", mode, cat, st.get(cat))[0])
+                    st["ll"], st["of"], st["ml"] = tables
+                    desc["tables"] = tuple(tables)
+                    desc["payload"] = block[payload_off:]
             plan.append(("cmp", desc))
         if last:
             break
 
     counters["plan.copied_bytes"] += copied
     counters["plan.planned_bytes"] += fpos + (4 if hdr.has_checksum else 0) - pos
+    counters["plan.fse_descs"] += descs
+    counters["plan.fse_descs_native"] += native_descs
     return hdr, plan, fpos
